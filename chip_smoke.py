@@ -7,11 +7,12 @@ card and check it.
 Phases, each of which raises on any failure (the script then exits non-zero
 and prints no result):
 
-1. kernel against plain version: for the bench's spine, interp and ring
-   programs and a set of scalar test programs, at 8,192 instances, the CUDA
-   step kernel and ``turbo_step_reference`` run the same launches on the card
-   and must leave bit-identical regs, sbuf and out after every launch;
-2. the main path at the bench's size: the spine at 131,072 instances,
+1. kernel against plain version: for the bench's spine, interp, ring,
+   adventure and race-io programs and a set of scalar, list and
+   parallel-lane test programs, at 8,192 instances, the CUDA step kernel and
+   ``turbo_step_reference`` run the same launches on the card and must leave
+   bit-identical regs, sbuf, out and meta after every launch;
+2. the spine at the bench's size: 131,072 instances,
    ``TurboEngine.run_async`` to the end through the kernel; every instance
    DONE with the host engine's output; tasks/s of kernel and plain version
    over the same launches;
@@ -19,7 +20,17 @@ and prints no result):
    times on a canned user_input, 16,384 instances (cut from 131,072 because
    every park takes the exact per-row host path), outputs and inserts equal
    to the host engine's;
-4. the CLI: ``--engine device --batch 256`` prints what the host CLI prints.
+4. the CLI: ``--engine device --batch 256`` prints what the host CLI prints,
+   for the spine and for the adventure program;
+5. the main path, the bench's default workload at its widths: the adventure
+   program (lists, a parallel race per turn) at 131,072 instances; kernel
+   and plain version bit-identical over the first two launches, with both
+   times; then ``run_async`` to the end at 40 turns through the kernel,
+   every instance DONE with the host engine's output and inserts;
+6. race-io through the lane servicing: every instance's race parks its
+   input lane once per turn, 3 turns, answered "cgo"; 16,384 instances
+   (cut from 131,072 as in phase 3); every park goes through the LaneRing,
+   and every instance ends DONE with the host engine's output and inserts.
 
 The last two lines of standard output are one JSON object naming each
 kernel with its launches on the main path, its largest deviation from the
@@ -71,17 +82,17 @@ def run_host(src: str, io, tmp: str) -> dict:
         return asyncio.run(runtime.async_main(path, [], io))
 
 
-def canned_io():
+def canned_io(answer: str = "ok"):
     from interpolation_engine_tpu_torch._shared import io_manager
 
     class Canned(io_manager.BufferBackend):
         sync_io = True
 
         def user_input_sync(self, prompt, default=""):
-            return "ok"
+            return answer
 
         async def user_input(self, prompt, default=""):
-            return "ok"
+            return answer
 
     return io_manager.IOManager(Canned())
 
@@ -91,7 +102,8 @@ def clone(batch):
 
 
 def max_abs_diff(a, b) -> int:
-    return max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
+    return max((int((x.long() - y.long()).abs().max())
+                for x, y in zip(a, b) if x.numel()), default=0)
 
 
 def spread_slot(engine, batch, key: str, hi: int, gen) -> None:
@@ -151,14 +163,14 @@ def timed(fn, batch, launches: int) -> float:
     return start.elapsed_time(end) / 1e3
 
 
-def phase2(card: str, tmp: str, n: int = 131_072) -> dict:
+def phase2(card: str, tmp: str, n: int = 131_072) -> None:
     import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager
     from interpolation_engine_tpu_torch.ops.turbo_step import (
         turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
-        C_OUTLEN, C_STATUS, C_STEPS, DONE, TurboConfig, TurboEngine)
+        C_STEPS, TurboConfig, TurboEngine)
 
     host = run_host(bench.BENCH_PROGRAM,
                     io_manager.IOManager(io_manager.BufferBackend()), tmp)
@@ -200,25 +212,11 @@ def phase2(card: str, tmp: str, n: int = 131_072) -> dict:
         raise AssertionError(
             f"phase 2: main path launched the kernel {launches} times and "
             f"the plain version {turbo_step_reference.launches} times")
-    status = final.regs[:, C_STATUS]
-    if not bool((status == DONE).all()):
-        raise AssertionError(f"phase 2: {int((status != DONE).sum())} "
-                             f"instances not DONE")
-    data = want.encode()
-    out_len = final.regs[:, C_OUTLEN]
-    expect = torch.tensor(list(data), dtype=torch.uint8, device="cuda")
-    if not (bool((out_len == len(data)).all())
-            and bool((final.out[:, :len(data)] == expect).all())):
-        raise AssertionError("phase 2: an output differs from the host's")
-    r0 = eng.results(final, 1)[0]
-    if r0.output != want or r0.inserts != dict(host["inserts"]):
-        raise AssertionError(f"phase 2: decoded {r0} != host {host}")
+    check_all_done("phase 2", eng, final, host)
     total = int(final.regs[:, C_STEPS].long().sum())
     log(f"phase 2 spine main path [{card}]: {n} instances DONE with "
         f"{want!r}, {launches} kernel launches, {total} steps in "
         f"{elapsed:.3f} s = {total / elapsed:.1f} tasks/s end to end")
-    return {"launches": launches, "ms": t_kern / L * 1e3,
-            "plain_ms": t_ref / L * 1e3}
 
 
 def phase3(card: str, tmp: str, n: int = 16_384) -> None:
@@ -252,21 +250,147 @@ def phase3(card: str, tmp: str, n: int = 16_384) -> None:
 
 def phase4(tmp: str) -> None:
     import bench
-    path = os.path.join(tmp, "spine.json5")
-    with open(path, "w") as f:
-        f.write(bench.BENCH_PROGRAM)
+    for name, src in (("spine", bench.BENCH_PROGRAM),
+                      ("adventure", bench.adventure_program(t_max=40))):
+        path = os.path.join(tmp, f"{name}.json5")
+        with open(path, "w") as f:
+            f.write(src)
 
-    def cli(*args):
-        return subprocess.run([sys.executable, "-m", *args, path], cwd=ROOT,
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
-    port = cli("interpolation_engine_tpu_torch.cli", "--engine", "device",
-               "--batch", "256")
-    host = cli("interpolation_engine_tpu.cli")
-    if port != host:
-        raise AssertionError(f"phase 4: port CLI {port!r} != host {host!r}")
-    log(f"phase 4 cli: --engine device --batch 256 printed {port!r}, as "
-        f"the host CLI")
+        def cli(*args):
+            return subprocess.run([sys.executable, "-m", *args, path],
+                                  cwd=ROOT, capture_output=True, text=True,
+                                  check=True, timeout=300).stdout
+        port = cli("interpolation_engine_tpu_torch.cli", "--engine",
+                   "device", "--batch", "256")
+        host = cli("interpolation_engine_tpu.cli")
+        if port != host:
+            raise AssertionError(f"phase 4 {name}: port CLI {port!r} != "
+                                 f"host {host!r}")
+        log(f"phase 4 cli {name}: --engine device --batch 256 printed "
+            f"{port!r}, as the host CLI")
+
+
+def check_all_done(name: str, eng, final, host: dict) -> None:
+    """Every instance DONE with the host's output (compared on the card)
+    and instance 0's decoded output and inserts equal to the host's."""
+    import torch
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        C_OUTLEN, C_STATUS, DONE)
+    status = final.regs[:, C_STATUS]
+    if not bool((status == DONE).all()):
+        raise AssertionError(f"{name}: {int((status != DONE).sum())} "
+                             f"instances not DONE")
+    data = host["output"].encode()
+    expect = torch.tensor(list(data), dtype=torch.uint8,
+                          device=final.out.device)
+    if not (bool((final.regs[:, C_OUTLEN] == len(data)).all())
+            and bool((final.out[:, :len(data)] == expect).all())):
+        raise AssertionError(f"{name}: an output differs from the host's")
+    r0 = eng.results(final, 1)[0]
+    if (r0.output, r0.inserts) != (host["output"], dict(host["inserts"])):
+        raise AssertionError(f"{name}: decoded {r0} != host {host}")
+
+
+def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
+    """The main path: the adventure program at the bench's widths."""
+    import bench
+    import torch
+    from interpolation_engine_tpu_torch._shared import io_manager
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        turbo_step, turbo_step_reference)
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        C_STEPS, TurboConfig, TurboEngine)
+
+    # bench.py's adventure config without the TPU-only tile and leaf
+    tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
+                       elem_width=32)
+    K = tcfg.k_steps
+    eng = TurboEngine(compile_src(bench.adventure_program()), tcfg,
+                      device="cuda")
+    b0 = eng.make_batch(n)
+    warm = clone(b0)
+    turbo_step(eng.tables, warm, K)
+    turbo_step_reference(eng.tables, warm, 1)
+    del warm
+    L = 2
+    kern, ref = clone(b0), clone(b0)
+    t_kern = timed(lambda b: turbo_step(eng.tables, b, K), kern, L)
+    t_ref = timed(lambda b: turbo_step_reference(eng.tables, b, K), ref, L)
+    worst = max_abs_diff(kern, ref)
+    if worst:
+        raise AssertionError("phase 5: kernel and plain version differ")
+    steps = int(kern.regs[:, C_STEPS].long().sum())
+    del kern, ref, b0
+    log(f"phase 5 adventure, first {L} launches x {K} steps at {n} "
+        f"instances [{card}]: kernel {steps / t_kern:.1f} tasks/s "
+        f"({t_kern / L * 1e3:.3f} ms/launch), plain version "
+        f"{steps / t_ref:.1f} tasks/s ({t_ref / L * 1e3:.3f} ms/launch)")
+
+    # the main path: run_async to the end at 40 turns, counted
+    src = bench.adventure_program(t_max=40)
+    host = run_host(src, io_manager.IOManager(io_manager.BufferBackend()),
+                    tmp)
+    eng = TurboEngine(compile_src(src), tcfg, device="cuda")
+    batch = eng.make_batch(n)
+    torch.cuda.synchronize()
+    turbo_step.launches = 0
+    turbo_step_reference.launches = 0
+    t0 = time.perf_counter()
+    final = eng.run(batch)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = turbo_step.launches
+    if launches <= 0 or turbo_step_reference.launches != 0:
+        raise AssertionError(
+            f"phase 5: main path launched the kernel {launches} times and "
+            f"the plain version {turbo_step_reference.launches} times")
+    check_all_done("phase 5", eng, final, host)
+    total = int(final.regs[:, C_STEPS].long().sum())
+    log(f"phase 5 adventure main path [{card}]: {n} instances DONE with "
+        f"the host's {len(host['output'].encode())}-byte output, {launches} "
+        f"kernel launches, {eng.ring_stats['parks']} parks, {total} steps "
+        f"in {elapsed:.3f} s = {total / elapsed:.1f} tasks/s end to end")
+    return {"launches": launches, "ms": t_kern / L * 1e3,
+            "plain_ms": t_ref / L * 1e3, "max_abs_err": worst}
+
+
+def phase6(card: str, tmp: str, n: int = 16_384) -> None:
+    """race-io: one lane park per instance per turn, through the
+    LaneRing."""
+    import bench
+    import torch
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        TurboConfig, TurboEngine)
+    src = bench.race_io_program(t_max=3)
+    host = run_host(src, canned_io("cgo"), tmp)
+    eng = TurboEngine(compile_src(src), TurboConfig(
+        width=128, out_width=128, k_steps=16, list_cap=12, elem_width=32),
+        io_factory=lambda i: canned_io("cgo"), device="cuda")
+    lanes_serviced = 0
+    service = eng._service_lanes
+
+    async def counted(*args):
+        nonlocal lanes_serviced
+        lanes_serviced += 1
+        return await service(*args)
+
+    eng._service_lanes = counted
+    t0 = time.perf_counter()
+    final = eng.run(eng.make_batch(n))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    parks = eng.ring_stats["parks"]
+    if parks != 3 * n or lanes_serviced != 3 * n:
+        raise AssertionError(f"phase 6: {parks} parks, {lanes_serviced} "
+                             f"through the lane servicing, want {3 * n}")
+    check_all_done("phase 6", eng, final, host)
+    want = (host["output"], dict(host["inserts"]))
+    for i, r in enumerate(eng.results(final)):
+        if (r.output, r.inserts) != want:
+            raise AssertionError(f"phase 6: instance {i}: {r} != {want}")
+    log(f"phase 6 race-io ring [{card}]: {n} instances, {parks} lane parks "
+        f"in {eng.ring_stats['rounds']} rounds, ring wall time "
+        f"{elapsed:.3f} s, all DONE with {want[0]!r}")
 
 
 def main() -> int:
@@ -301,17 +425,28 @@ def main() -> int:
         "newline_affix": (tp.NEWLINE_ROUTE % {"key": "he*llo"}, None),
         "int_dispatch": (tp.INT_DISPATCH, ("i", 5)),
         "delete_clear": (tp.DELETE_CLEAR, None),
+        "adventure": (bench.adventure_program(), ("turn", 600)),
+        "race_io": (bench.race_io_program(), ("turn", 600)),
+        "list_spine": (tp.LIST_SPINE, None),
+        "list_edges": (tp.LIST_EDGES, None),
+        "for_dynamic": (tp.FOR_DYNAMIC, None),
+        "par_wait": (tp.PAR_RACE % {"mode": "wait"}, None),
+        "par_race": (tp.PAR_RACE % {"mode": "race"}, None),
+        "midblock_race": (tp.MIDBLOCK_PARK % {"mode": "race"}, None),
+        "parked_freeze_par": (tp.PARKED_FREEZE_PAR, None),
     }
     worst = phase1(progs)
     with tempfile.TemporaryDirectory() as tmp:
-        main_path = phase2(card, tmp)
+        phase2(card, tmp)
         phase3(card, tmp)
         phase4(tmp)
+        main_path = phase5(card, tmp)
+        phase6(card, tmp)
     print(json.dumps({"kernels": [{
         "name": "turbo_step_kernel", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "launches": main_path["launches"],
-        "max_abs_err": worst, "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"]}]}))
+        "max_abs_err": max(worst, main_path["max_abs_err"]),
+        "ms": main_path["ms"], "plain_ms": main_path["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

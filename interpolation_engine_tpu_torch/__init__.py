@@ -14,8 +14,9 @@ planner, the exact host executor, IO and the parallel-lane ring) through
   written by hand in CUDA C++, beside its plain PyTorch version;
 * ``vm/driver.py`` and ``cli.py`` — the ``--engine device`` entry point.
 
-This slice runs programs whose turbo plan uses only the scalar
-instructions; lists and parallel thread lanes raise ``NotPorted``.
+Every program the turbo planner accepts runs, lists and parallel thread
+lanes included; a value that outgrows its slot raises ``NotPorted``
+(promotion to a wider sibling batch is not ported yet).
 """
 
 __version__ = "0.1.0"

@@ -64,7 +64,7 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.turbo_step_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.turbo_step_launch.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.turbo_step_launch.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p

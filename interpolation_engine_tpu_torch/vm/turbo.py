@@ -14,19 +14,27 @@ resumes the lane.
 
 Layouts (N instances, R byte rows, W slot bytes, OW output bytes):
 
-  regs : (N, REGW) int32  the register columns of ``_Cols`` (same layout as
-                          the JAX package, so codecs and tests read both)
-  sbuf : (R, N, W) uint8  one byte row per str/mix slot
-  out  : (N, OW)   uint8  output buffer bytes
+  regs : (N, REGW)   int32  the register columns of ``_Cols`` (same layout
+                            as the JAX package, so codecs and tests read both)
+  sbuf : (R, N, W)   uint8  one byte row per str/mix slot, then per list
+                            slot its meta row (unused here, kept zero) and
+                            its packed element rows
+  out  : (N, OW)     uint8  output buffer bytes
+  meta : (M, N, 3E)  int32  per list slot (``_Cols.list_ord`` order) the
+                            element scalars: [0,E) etype, [E,2E) eint,
+                            [2E,3E) elen
 
 The TPU kept bytes in int32 planes only because Mosaic has no int8
-vectors; here they are uint8. The step updates these tensors in place.
+vectors; here they are uint8. A list's element ints need 32 bits, so the
+JAX package's int32 meta row moves into ``meta``, and the sbuf row keeps
+its index so every other row keeps the JAX row numbering. The step
+updates these tensors in place.
 
-This slice covers plans made of the scalar instructions: lists and
-parallel thread lanes raise ``NotPorted`` (``vm/turbo_tables.py``), and so
-does a value that outgrows its slot (promotion to a wider sibling batch).
-The ring is the JAX package's exact slow path; its vectorized fast park
-path is not here yet.
+Every plan that ``plan_turbo`` accepts runs, parallel thread lanes and
+lists included. A value that outgrows its slot raises ``NotPorted``
+(promotion to a wider sibling batch is not here yet). The ring is the JAX
+package's exact slow path, with lane servicing for instances parked inside
+a parallel block; its vectorized fast park path is not here yet.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from .turbo_tables import NotPorted, build_tables
 
 NotTurbo = planner.NotTurbo
 DONE, PARKED, RUNNING = vm_config.DONE, vm_config.PARKED, vm_config.RUNNING
+PM_NONE, T_FREE = vm_config.PM_NONE, vm_config.T_FREE
 
 # fixed control columns; everything after is computed by _Cols
 C_PC, C_STATUS, C_STEPS, C_OUTLEN = 0, 1, 2, 3
@@ -62,7 +71,7 @@ class TurboConfig:
     width: int = 128    # slot string bytes
     out_width: int = 256
     k_steps: int = 32   # VM steps per kernel launch
-    list_cap: int = 12  # elements per list slot (layout only in this slice)
+    list_cap: int = 12  # elements per list slot
     elem_width: int = 32  # bytes per list element
 
 
@@ -79,11 +88,14 @@ class _Cols:
 
     REGW is padded to a multiple of 128. Byte rows exist only for slots
     that can hold a string (kind 'str'/'mix'); each list slot owns one meta
-    row plus ceil(E / PACK) packed element rows after the string rows."""
+    row (its element scalars live in the batch's ``meta`` tensor) plus
+    ceil(E / PACK) packed element rows after the string rows, PACK =
+    width // elem_width elements per row."""
 
     def __init__(self, S: int, kinds=None, n_loops: int = 0,
                  nt: int = 0, list_cap: int = 12, width: int = 128,
-                 elem_width: int = 32):
+                 elem_width: int = 32, elem_kinds=None):
+        self.ekinds = dict(elem_kinds or {})
         self.S = S
         self.n_loops = n_loops
         self.nt = nt
@@ -139,12 +151,32 @@ class _Cols:
     def kind(self, s: int) -> str:
         return self.kinds[s]
 
+    def ekind(self, s: int) -> str:
+        """Element kind of list slot s ('int'/'str'/'mix'): a list repr
+        parks on an element of the other kind."""
+        return self.ekinds.get(s, "mix")
+
+    # thread lanes
+    def tpc(self, lane: int) -> int:
+        return self._threads0 + lane
+
+    def tstate(self, lane: int) -> int:
+        return self._threads0 + self.nt + lane
+
+    def tparg(self, lane: int) -> int:
+        return self._threads0 + 2 * self.nt + lane
+
+    def elem_pos(self, s: int, e: int) -> tuple:
+        """(byte row, byte offset) of element e of list slot s."""
+        return (self.list_row0[s] + e // self.pack,
+                (e % self.pack) * self.ew)
+
 
 def _make_cols(plan, tcfg: TurboConfig) -> _Cols:
     return _Cols(max(plan.n_slots, 1), plan.slot_kinds,
                  plan.compiled.n_loops, nt=plan.needs_threads,
                  list_cap=tcfg.list_cap, width=tcfg.width,
-                 elem_width=tcfg.elem_width)
+                 elem_width=tcfg.elem_width, elem_kinds=plan.elem_kinds)
 
 
 class _LitTable:
@@ -202,6 +234,12 @@ class _LitTable:
                 for pat, _tpc in ins.entries:
                     for part in pat[1:]:
                         self.register(part)
+        # the JAX package registers no list_index template (its kernel
+        # build then fails on the literal); register them after every JAX
+        # row, so the rows above stay the JAX package's
+        for ins in instrs:
+            if isinstance(ins, p.IListIndex) and ins.index[0] == "tmpl":
+                self._collect_tmpl(ins.index[1])
 
     def _collect_item(self, src) -> None:
         if src[0] == "str":
@@ -219,21 +257,36 @@ class TurboBatch(NamedTuple):
     regs: torch.Tensor   # (N, REGW) int32
     sbuf: torch.Tensor   # (R, N, W) uint8
     out: torch.Tensor    # (N, OW) uint8
+    meta: torch.Tensor   # (M, N, 3E) int32
 
 
-def from_jax_batch(regs, sbuf, out, device) -> TurboBatch:
+def _meta_rows(cols: _Cols) -> list:
+    """The sbuf row of each meta plane, in plane order."""
+    return [cols.meta_row[s] for s in sorted(cols.list_ord,
+                                             key=cols.list_ord.get)]
+
+
+def from_jax_batch(cols: _Cols, regs, sbuf, out, *, device) -> TurboBatch:
     """The JAX package's TurboBatch (as numpy: int32 regs, int32 byte
-    planes) as the port's tensors on ``device``. The register and row
-    layouts are the same, so only the byte planes change type."""
+    planes) as the port's tensors on ``device``. Lanes [0, 3E) of each
+    list slot's meta row move into ``meta``; the row itself stays zero."""
+    sbuf = np.array(sbuf, np.int32)
+    rows = _meta_rows(cols)
+    meta = sbuf[rows, :, :3 * cols.E].copy()
+    sbuf[rows] = 0
     return TurboBatch(
         regs=torch.from_numpy(np.array(regs, np.int32)).to(device),
-        sbuf=torch.from_numpy(np.array(sbuf, np.uint8)).to(device),
-        out=torch.from_numpy(np.array(out, np.uint8)).to(device))
+        sbuf=torch.from_numpy(sbuf.astype(np.uint8)).to(device),
+        out=torch.from_numpy(np.array(out, np.uint8)).to(device),
+        meta=torch.from_numpy(meta).to(device))
 
 
-def to_jax_batch(batch: TurboBatch) -> tuple:
+def to_jax_batch(cols: _Cols, batch: TurboBatch) -> tuple:
     """The reverse of ``from_jax_batch``: numpy int32 (regs, sbuf, out)."""
-    return tuple(t.cpu().numpy().astype(np.int32) for t in batch)
+    regs, sbuf, out = (t.cpu().numpy().astype(np.int32)
+                       for t in batch[:3])
+    sbuf[_meta_rows(cols), :, :3 * cols.E] = batch.meta.cpu().numpy()
+    return regs, sbuf, out
 
 
 class TurboEncodeError(ValueError):
@@ -258,7 +311,8 @@ class TurboEngine:
     tensors through its plain PyTorch version.
 
     The ring is the JAX package's exact slow path: one gather of all parked
-    rows per round, exact host service per row, one scatter back.
+    rows per round, exact host service per row (through the shared LaneRing
+    for a row parked inside a parallel block), one scatter back.
 
     Known decode-order divergence (as in the JAX package): decoded insert
     dicts list keys in static slot order, not dynamic first-write order.
@@ -315,14 +369,17 @@ class TurboEngine:
             regs=bcast(row["regs"][None], (n, self.cols.regw)),
             sbuf=bcast(row["sbuf"][:, None, :],
                        (self.cols.n_rows, n, self.tcfg.width)),
-            out=bcast(row["out"][None], (n, self.tcfg.out_width)))
+            out=bcast(row["out"][None], (n, self.tcfg.out_width)),
+            meta=bcast(row["meta"][:, None, :],
+                       (len(self.cols.list_ord), n, 3 * self.cols.E)))
 
     def _encode_slot(self, regs: np.ndarray, sbuf: np.ndarray,
-                     key, value) -> None:
-        """Encode ONE insert value into its slot's register cells and byte
-        row, in place (regs: (REGW,), sbuf: (R, W); the caller guarantees
-        the slot's cells and row are zeroed). Values that violate the
-        plan's slot-kind inference raise."""
+                     meta: np.ndarray, key, value) -> None:
+        """Encode ONE insert value into its slot's register cells, byte rows
+        and meta plane, in place (regs: (REGW,), sbuf: (R, W), meta:
+        (M, 3E); the caller guarantees the slot's cells and rows are
+        zeroed). Values that violate the plan's slot-kind or element-kind
+        inference raise."""
         w = self.tcfg.width
         cols = self.cols
         s = self.plan.slot_of.get(str(key))
@@ -341,8 +398,42 @@ class TurboEngine:
             regs[cols.stype(s)] = T_INT
             regs[cols.sint(s)] = value
         elif isinstance(value, list):
-            # a ported plan has no list slots (vm/turbo_tables.py)
-            raise TurboEncodeError(f"list value in scalar slot {key!r}")
+            if cols.kind(s) != "list":
+                raise TurboEncodeError(
+                    f"list value in scalar slot {key!r}")
+            if len(value) > cols.E:
+                raise TurboEncodeError(
+                    f"list {key!r} exceeds {cols.E} elements")
+            regs[cols.stype(s)] = T_LIST
+            regs[cols.slen(s)] = len(value)
+            cells = meta[cols.list_ord[s]]
+            ek = cols.ekind(s)
+            for e, elem in enumerate(value):
+                if isinstance(elem, bool) or \
+                        not isinstance(elem, (int, str)):
+                    raise TurboEncodeError(
+                        f"element of {key!r} is not int/str")
+                if (isinstance(elem, int) and ek == "str") or \
+                        (isinstance(elem, str) and ek == "int"):
+                    raise TurboEncodeError(
+                        f"element kind of {key!r} violates the "
+                        f"plan ({ek}-only list)")
+                if isinstance(elem, int):
+                    if not (-2**31 <= elem < 2**31):
+                        raise TurboEncodeError(
+                            f"element of {key!r} exceeds int32")
+                    cells[e] = T_INT
+                    cells[cols.E + e] = elem
+                else:
+                    data = elem.encode("utf-8")
+                    if len(data) > cols.ew:
+                        raise TurboEncodeError(
+                            f"element of {key!r} exceeds {cols.ew}B")
+                    cells[e] = T_STR
+                    cells[2 * cols.E + e] = len(data)
+                    row, off = cols.elem_pos(s, e)
+                    sbuf[row, off:off + len(data)] = \
+                        np.frombuffer(data, np.uint8)
         else:
             data = value.encode("utf-8")
             if len(data) > w:
@@ -356,15 +447,20 @@ class TurboEngine:
                 np.frombuffer(data, np.uint8)
 
     def _zero_slot(self, regs: np.ndarray, sbuf: np.ndarray,
-                   s: int) -> None:
-        """Zero slot s's register cells and byte row (the encode
-        invariant: bytes past a value's length are zero)."""
+                   meta: np.ndarray, s: int) -> None:
+        """Zero slot s's register cells, byte rows and meta plane (the
+        encode invariant: bytes and cells past a value's length are
+        zero)."""
         cols = self.cols
         regs[cols.stype(s)] = 0
         regs[cols.sint(s)] = 0
         regs[cols.slen(s)] = 0
         if s in cols.str_row:
             sbuf[cols.str_row[s], :] = 0
+        if s in cols.list_ord:
+            meta[cols.list_ord[s], :] = 0
+            r0 = cols.list_row0[s]
+            sbuf[r0:r0 + cols.elem_rows, :] = 0
 
     def _encode_row(self, inserts: dict, output: str, pc: int,
                     steps: int) -> dict:
@@ -375,19 +471,20 @@ class TurboEngine:
         regs[C_STATUS] = RUNNING
         regs[C_STEPS] = steps
         sbuf = np.zeros((cols.n_rows, self.tcfg.width), np.uint8)
+        meta = np.zeros((len(cols.list_ord), 3 * cols.E), np.int32)
         out = np.zeros((self.tcfg.out_width,), np.uint8)
         for key, value in inserts.items():
-            self._encode_slot(regs, sbuf, key, value)
+            self._encode_slot(regs, sbuf, meta, key, value)
         out_data = output.encode("utf-8")
         if len(out_data) > self.tcfg.out_width:
             raise TurboEncodeError("output exceeds the device buffer")
         out[:len(out_data)] = np.frombuffer(out_data, np.uint8)
         regs[C_OUTLEN] = len(out_data)
-        return {"regs": regs, "sbuf": sbuf, "out": out}
+        return {"regs": regs, "sbuf": sbuf, "out": out, "meta": meta}
 
     def _decode_row(self, sub: dict, j: int, i: int = None) -> dict:
-        """Row j of a host copy (regs int32, sbuf/out uint8) as a
-        reference-format ``{"inserts", "output"}`` dict; instance i's
+        """Row j of a host copy (regs and meta int32, sbuf and out uint8)
+        as a reference-format ``{"inserts", "output"}`` dict; instance i's
         spilled output prefix is folded in."""
         cols = self.cols
         regs = sub["regs"][j]
@@ -402,8 +499,19 @@ class TurboEngine:
                 inserts[key] = sub["sbuf"][row, j, :ln].tobytes().decode(
                     "utf-8", "replace")
             elif vt == T_LIST:
-                raise RuntimeError(f"slot {key!r} holds a list; this plan "
-                                   f"has no list slots")
+                count = int(regs[cols.slen(s)])
+                cells = sub["meta"][cols.list_ord[s], j]
+                elems = []
+                for e in range(min(count, cols.E)):
+                    if int(cells[e]) == T_INT:
+                        elems.append(int(cells[cols.E + e]))
+                    else:
+                        el = int(cells[2 * cols.E + e])
+                        row, off = cols.elem_pos(s, e)
+                        elems.append(
+                            sub["sbuf"][row, j, off:off + el].tobytes()
+                            .decode("utf-8", "replace"))
+                inserts[key] = elems
         ln = int(regs[C_OUTLEN])
         output = sub["out"][j, :ln].tobytes().decode("utf-8", "replace")
         if i is not None and i in self._out_prefix:
@@ -432,6 +540,17 @@ class TurboEngine:
 
     # ---- host ring -----------------------------------------------------------
 
+    def _gid(self, row: int) -> int:
+        """Global instance id of a batch row, the LaneRing's key. One engine
+        owns the whole batch, so it is the row (the JAX package's sharded
+        engines map it through their instance ids)."""
+        return row
+
+    def _row_of(self, gid: int, n: int):
+        """Batch row of a global id, or None when the batch has no such
+        row."""
+        return gid if 0 <= gid < n else None
+
     def _io_for(self, i: int):
         io = self._ios.get(i)
         if io is None:
@@ -444,9 +563,76 @@ class TurboEngine:
             self.compiled.program.get("completion_args", {}),
             self.compiled.program.get("named_tasks", {})))
 
+    @staticmethod
+    def _promotion(i: int, e: Exception) -> NotPorted:
+        return NotPorted(f"promotion of instance {i} to a wider sibling "
+                         f"batch (ROADMAP Queue 1, promotion): {e}")
+
+    async def _service_lanes(self, sub: dict, j: int, i: int,
+                             rts: dict) -> bool:
+        """Service row j (instance i), parked inside a parallel block,
+        through the shared LaneRing (``vm/lanering.py``): waiting lanes get
+        persistent host IO tasks, completions merge last-write-wins, and
+        the instance resumes on the device at the next runnable lane or the
+        block's join. Returns True when the row resumed."""
+        cols = self.cols
+        regs = sub["regs"][j]
+        state = self._decode_row(sub, j, i)
+        nt = cols.nt
+        tstate = np.asarray([regs[cols.tstate(l)] for l in range(nt)],
+                            np.int32)
+        tpc = np.asarray([regs[cols.tpc(l)] for l in range(nt)], np.int32)
+        tparg = np.asarray([regs[cols.tparg(l)] for l in range(nt)],
+                           np.int32)
+        tpark_kind = np.asarray(
+            [self.plan.park_kind_of.get(int(tparg[l]), vm_config.PARK_HOST_OP)
+             if int(tstate[l]) == vm_config.T_WAIT else 0
+             for l in range(nt)], np.int32)
+        lc0, lc1 = cols._loops0, cols._loops0 + cols.n_loops
+        counters = np.asarray(regs[lc0:lc1]).copy()
+        view = {"tstate": tstate, "tpc": tpc, "tpark_kind": tpark_kind,
+                "tpark_arg": tparg, "counters": counters, "state": state,
+                "cur": int(regs[C_CURTID]),
+                "par_mode": int(regs[C_PARMODE]),
+                "par_join": int(regs[C_PARJOIN]),
+                "par_epoch": int(regs[C_PAREPOCH])}
+        rt = self._runtime_for(i, rts)
+        before = self._snapshot_inserts(state["inserts"])
+        before_output = state["output"]
+        res = await self._lanering.service(rt, self._gid(i), view,
+                                           engine="turbo")
+        if res == "parked":
+            return False
+        steps = int(regs[C_STEPS]) + 1
+        next_pc = view["par_join"] if res == "complete" else \
+            int(view["tpc"][view["cur"]])
+        try:
+            self._write_row_delta(sub, j, before, before_output,
+                                  view["state"], next_pc, steps, i)
+        except TurboEncodeError as e:
+            raise self._promotion(i, e) from e
+        # lane and block bookkeeping past what the delta write covers
+        regs = sub["regs"][j]
+        regs[lc0:lc1] = view["counters"][:cols.n_loops]
+        if res == "complete":
+            regs[C_CURTID] = -1
+            regs[C_PARMODE] = PM_NONE
+            regs[C_PARJOIN] = 0
+            regs[C_PAREPOCH] += 1
+            for l in range(nt):
+                regs[cols.tstate(l)] = T_FREE
+        else:
+            regs[C_CURTID] = view["cur"]
+            for l in range(nt):
+                regs[cols.tstate(l)] = view["tstate"][l]
+                regs[cols.tpc(l)] = view["tpc"][l]
+        return True
+
     async def _service(self, sub: dict, j: int, i: int, rts: dict) -> bool:
         """Service parked row j (instance i) in place in ``sub``. Returns
         True when the row resumed."""
+        if int(sub["regs"][j, C_PARMODE]) > 0:
+            return await self._service_lanes(sub, j, i, rts)
         pc = int(sub["regs"][j, C_PC])
         task = self.compiled.source_tasks[pc]
         state = self._decode_row(sub, j, i)
@@ -476,9 +662,7 @@ class TurboEngine:
             self._write_row_delta(sub, j, before, before_output, state,
                                   next_pc, steps, i)
         except TurboEncodeError as e:
-            raise NotPorted(
-                f"promotion of instance {i} to a wider sibling batch "
-                f"(ROADMAP Queue 1, promotion): {e}") from e
+            raise self._promotion(i, e) from e
         sub["regs"][j, lc0:lc1] = counters[:cols.n_loops]
         return True
 
@@ -519,16 +703,16 @@ class TurboEngine:
             return self._write_row(sub, j, state, pc, steps, i)
         regs = sub["regs"][j]
         sbuf = sub["sbuf"][:, j]
-        regs_bak = regs.copy()
-        sbuf_bak = sbuf.copy()
+        meta = sub["meta"][:, j]
+        backup = regs.copy(), sbuf.copy(), meta.copy()
         try:
             for k, v in inserts.items():
                 if k in before and self._same_value(before[k], v):
                     continue
                 s = self.plan.slot_of.get(str(k))
                 if s is not None:
-                    self._zero_slot(regs, sbuf, s)
-                self._encode_slot(regs, sbuf, k, v)
+                    self._zero_slot(regs, sbuf, meta, s)
+                self._encode_slot(regs, sbuf, meta, k, v)
             if state["output"] != before_output:
                 # the decoded output had any stored prefix folded in, so it
                 # must not survive
@@ -544,8 +728,7 @@ class TurboEngine:
                 sub["out"][j, :len(data)] = np.frombuffer(data, np.uint8)
                 regs[C_OUTLEN] = len(data)
         except TurboEncodeError:
-            regs[:] = regs_bak
-            sbuf[:] = sbuf_bak
+            regs[:], sbuf[:], meta[:] = backup
             raise
         regs[C_PC] = pc
         regs[C_STEPS] = steps
@@ -560,7 +743,7 @@ class TurboEngine:
         output = self._spill(i, state["output"],
                              int(sub["regs"][j, C_CLREPOCH]))
         row = self._encode_row(state["inserts"], output, pc, steps)
-        # loop counters and control columns past status live outside the
+        # loop counters and parallel-lane bookkeeping live outside the
         # reference state dict — a park must not reset them
         cols = self.cols
         row["regs"][C_CURTID:cols._slots0] = \
@@ -570,13 +753,15 @@ class TurboEngine:
         sub["regs"][j] = row["regs"]
         sub["sbuf"][:, j, :] = row["sbuf"]
         sub["out"][j] = row["out"]
+        sub["meta"][:, j, :] = row["meta"]
 
     def _gather_sub(self, batch: TurboBatch, rows: np.ndarray):
         """Host copies of the given rows, and their index on the device."""
         idx = torch.from_numpy(rows.astype(np.int64)).to(self.device)
         sub = {"regs": batch.regs.index_select(0, idx).cpu().numpy(),
                "sbuf": batch.sbuf.index_select(1, idx).cpu().numpy(),
-               "out": batch.out.index_select(0, idx).cpu().numpy()}
+               "out": batch.out.index_select(0, idx).cpu().numpy(),
+               "meta": batch.meta.index_select(1, idx).cpu().numpy()}
         return sub, idx
 
     def _scatter_sub(self, batch: TurboBatch, sub: dict, idx) -> None:
@@ -584,18 +769,35 @@ class TurboEngine:
         batch.regs.index_copy_(0, idx, torch.from_numpy(sub["regs"]).to(dev))
         batch.sbuf.index_copy_(1, idx, torch.from_numpy(sub["sbuf"]).to(dev))
         batch.out.index_copy_(0, idx, torch.from_numpy(sub["out"]).to(dev))
+        batch.meta.index_copy_(1, idx, torch.from_numpy(sub["meta"]).to(dev))
 
     @staticmethod
     def _status(batch: TurboBatch) -> np.ndarray:
         return batch.regs[:, C_STATUS].to("cpu", copy=True).numpy()
 
+    async def _sweep_pending(self, batch: TurboBatch,
+                             status: np.ndarray) -> None:
+        """Cancel the host IO of finished parallel blocks: a race won on
+        the device bumps the row's par_epoch, and the losers' pending IO
+        must go (the reference cancels after FIRST_COMPLETED)."""
+        epochs = batch.regs[:, C_PAREPOCH].to("cpu", copy=True).numpy()
+        for gid in list(self._lanering.pending):
+            row = self._row_of(gid, len(status))
+            pend = self._lanering.pending.get(gid)
+            if row is None or pend is None:
+                continue
+            if int(epochs[row]) != pend["epoch"] or \
+                    status[row] not in (RUNNING, PARKED):
+                await self._lanering.cancel(gid)
+
     async def run_async(self, batch: TurboBatch, *, max_rounds: int = 10_000
                         ) -> TurboBatch:
         """Step until no lane is RUNNING or PARKED. Each round launches the
-        step, gathers every parked row to the host, launches one more step
-        for the running lanes (parked lanes are frozen in the kernel, so it
-        overlaps the host service), services each parked row exactly and
-        scatters the rows back."""
+        step, cancels the IO of finished parallel blocks, gathers every
+        parked row to the host, launches one more step for the running
+        lanes (parked lanes are frozen in the kernel, so it overlaps the
+        host service), services each parked row exactly and scatters the
+        rows back."""
         import asyncio
         step = self.step_fn(batch.regs.shape[0])
         rts: dict = {}
@@ -603,6 +805,8 @@ class TurboEngine:
         for round_no in range(max_rounds):
             batch = step(batch)
             status = self._status(batch)
+            if self._lanering.pending:
+                await self._sweep_pending(batch, status)
             parked = np.nonzero(status == PARKED)[0]
             if len(parked) == 0:
                 if not (status == RUNNING).any():
@@ -640,7 +844,10 @@ class TurboEngine:
                 await asyncio.sleep(0.05)
             else:
                 stalled = 0
-        await self._lanering.cancel_all()
+        n_rows = int(batch.regs.shape[0])
+        for gid in list(self._lanering.pending):
+            if self._row_of(gid, n_rows) is not None:
+                await self._lanering.cancel(gid)
         return batch
 
     def run(self, batch: TurboBatch, **kw) -> TurboBatch:
@@ -650,9 +857,7 @@ class TurboEngine:
     # ---- results ----------------------------------------------------------------
 
     def results(self, batch: TurboBatch, n: int = None) -> list:
-        host = {"regs": batch.regs.cpu().numpy(),
-                "sbuf": batch.sbuf.cpu().numpy(),
-                "out": batch.out.cpu().numpy()}
+        host = {k: v.cpu().numpy() for k, v in batch._asdict().items()}
         n = self._n_live if n is None else n
         out = []
         for i in range(n):

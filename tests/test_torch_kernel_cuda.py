@@ -1,5 +1,6 @@
 """The CUDA step kernel against its plain PyTorch version on the card: bit
-for bit after every launch. Runs where ``torch.cuda.is_available()``;
+for bit (regs, sbuf, out and meta) after every launch. Runs where
+``torch.cuda.is_available()``;
 skips elsewhere (``python -m pytest tests/test_torch_kernel_cuda.py`` on the
 card, or ``python3 chip_smoke.py``, which covers the same at full size)."""
 
@@ -17,11 +18,17 @@ from interpolation_engine_tpu_torch.vm.turbo import TurboConfig, TurboEngine
 
 pytestmark = pytest.mark.cuda
 
-PROGRAMS = dict(tp.AGREEING, spine=bench.BENCH_PROGRAM,
+PROGRAMS = dict(tp.AGREEING, **tp.LIST_AGREEING, spine=bench.BENCH_PROGRAM,
                 interp=bench.INTERP_PROGRAM,
                 ring=bench.RING_PROGRAM.replace("sel: 'spin'", "sel: 'park'"),
                 overflow=tp.INT32_OVERFLOW, inexact=tp.INEXACT_DIV,
-                await_not_ready=tp.AWAIT_NOT_READY)
+                await_not_ready=tp.AWAIT_NOT_READY,
+                adventure=bench.adventure_program(),
+                race_io=bench.race_io_program(),
+                midblock_wait=tp.MIDBLOCK_PARK % {"mode": "wait"},
+                midblock_race=tp.MIDBLOCK_PARK % {"mode": "race"},
+                parked_freeze_par=tp.PARKED_FREEZE_PAR,
+                spill_parallel=tp.SPILL_PARALLEL)
 
 
 @pytest.fixture
@@ -43,11 +50,12 @@ def test_kernel_equals_plain_after_every_launch(name, cuda):
                       TurboConfig(width=128, out_width=192, k_steps=8),
                       device=cuda)
     batch = eng.make_batch(300)
-    slot = eng.plan.slot_of.get("i")
-    if slot is not None:   # lanes leave their loops at different rounds
-        gen = torch.Generator().manual_seed(0)
-        batch.regs[:, eng.cols.sint(slot)] = torch.randint(
-            0, 40, (300,), generator=gen, dtype=torch.int32).to(cuda)
+    for key in ("i", "turn"):   # lanes leave their loops at other rounds
+        slot = eng.plan.slot_of.get(key)
+        if slot is not None:
+            gen = torch.Generator().manual_seed(0)
+            batch.regs[:, eng.cols.sint(slot)] = torch.randint(
+                0, 40, (300,), generator=gen, dtype=torch.int32).to(cuda)
     kern = type(batch)(*(t.clone() for t in batch))
     for _ in range(6):
         turbo_step(eng.tables, kern, 8)
@@ -57,10 +65,11 @@ def test_kernel_equals_plain_after_every_launch(name, cuda):
             assert torch.equal(k, r)
 
 
-@pytest.mark.parametrize("idx", range(40))
+@pytest.mark.parametrize("idx", range(64))
 def test_kernel_equals_plain_on_random_programs(idx, cuda):
     from interpolation_engine_tpu_torch._shared import json5
-    program = tp.random_scalar_program(random.Random(7000 + idx))
+    program = (tp.random_scalar_program(random.Random(7000 + idx))
+               if idx < 40 else tp.random_program(random.Random(9000 + idx)))
     eng = TurboEngine(compile_src(json5.dumps(program, indent=2)),
                       TurboConfig(width=64, out_width=64, k_steps=2),
                       device=cuda)

@@ -57,25 +57,31 @@ BLOCKED_RUN = textwrap.dedent("""
         compile_program, json5, loader)
     from interpolation_engine_tpu_torch.vm.turbo import (
         DONE, TurboConfig, TurboEngine)
-    program = json5.loads(loader.add_line_numbers(sys.argv[2]))
-    engine = TurboEngine(compile_program(program),
-                         TurboConfig(width=64, out_width=64, k_steps=64),
-                         device="cpu")
-    results = engine.results(engine.run(engine.make_batch(2)))
-    assert all(r.status == DONE for r in results), results
+    for src in sys.argv[2:]:
+        program = json5.loads(loader.add_line_numbers(src))
+        engine = TurboEngine(compile_program(program),
+                             TurboConfig(width=128, out_width=192,
+                                         k_steps=64), device="cpu")
+        results = engine.results(engine.run(engine.make_batch(2)))
+        assert all(r.status == DONE for r in results), results
+        print(results[0].output)
     assert not [m for m in sys.modules if m.split(".")[0] == "jax"]
-    print(results[0].output)
 """)
 
 
 def test_port_runs_with_jax_blocked():
+    import bench
     proc = subprocess.run(
-        [sys.executable, "-c", BLOCKED_RUN, str(ROOT), SPINE],
+        [sys.executable, "-c", BLOCKED_RUN, str(ROOT), SPINE,
+         bench.adventure_program(t_max=12)],
         capture_output=True, text=True, timeout=120,
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert proc.returncode == 0, proc.stderr
     acc = sum(i % 7 for i in range(1, 41))
-    assert proc.stdout.strip() == f"done acc={acc}"
+    assert proc.stdout.split("\n")[:2] == [
+        f"done acc={acc}",
+        "gen-scene-1-12;fin turn=12 acc=36 hist=['h5.4', 'h0.5', 'h1.6', "
+        "'h2.7', 'h3.8', 'h4.9', 'h5.10', 'h0.11', 'h1.12']"]
 
 
 def test_fnv1a_matches_jax_package():

@@ -179,9 +179,11 @@ def test_halt_takes_no_step():
     assert p.steps == j.steps == 1 and p.status == DONE
 
 
-def test_adventure_raises_not_ported():
-    with pytest.raises(NotPorted, match="ROADMAP"):
-        port_engine(bench.adventure_program())
+def test_adventure_raises_not_ported(tmp_path, capsys):
+    """No list or lane instruction raises NotPorted (a class that promotion
+    still raises, and no NotTurbo): the adventure program runs to DONE
+    equal to the host and to JAX."""
+    assert_three_agree(bench.adventure_program(t_max=12), tmp_path, capsys)
     assert not issubclass(NotPorted, NotTurbo)
 
 

@@ -4,12 +4,15 @@ CPU, at the JAX package's small test size."""
 
 import asyncio
 
+import pytest
+
 from interpolation_engine_tpu import json5
 from interpolation_engine_tpu.compiler import compile_program
 from interpolation_engine_tpu.core.runtime import async_main
 from interpolation_engine_tpu.io.manager import IOManager, ScriptedBackend
 from interpolation_engine_tpu.programs.loader import add_line_numbers
 from interpolation_engine_tpu.programs.validator import validate_program
+from interpolation_engine_tpu.vm.config import DONE
 from interpolation_engine_tpu.vm import turbo as jax_turbo
 from interpolation_engine_tpu_torch.vm import turbo as port_turbo
 
@@ -60,3 +63,31 @@ def run_jax(src: str, n: int = 2, tcfg=JAX_TCFG, responses=()) -> list:
 def summary(r) -> tuple:
     """What the port and the JAX engine must agree on at DONE or a park."""
     return (r.output, r.inserts, r.status, r.steps)
+
+
+def prog(inserts: str, *tasks: str) -> str:
+    """A program source from its inserts and its tasks, as JSON5 text."""
+    return ("{default_state: {order_index: 1, inserts: %s}, order: [%s], "
+            "named_tasks: {}, save_states: {}}" % (inserts, ", ".join(tasks)))
+
+
+def agree_with_host(src, tmp_path, capsys, n=2, tcfg=PORT_TCFG,
+                    responses=()):
+    """The port runs n instances to DONE with the host's output and inserts
+    (returns instance 0's result), or raises the host's error (returns
+    None)."""
+    try:
+        host = run_host(src, tmp_path, responses)
+    except Exception as e:
+        capsys.readouterr()
+        with pytest.raises(type(e)) as err:
+            run_port(src, n, tcfg, responses)
+        assert str(err.value) == str(e)
+        return None
+    capsys.readouterr()
+    res = run_port(src, n, tcfg, responses)
+    for r in res:
+        assert r.status == DONE
+        assert (r.output, r.inserts) == (host["output"],
+                                         dict(host["inserts"]))
+    return res[0]

@@ -1,6 +1,6 @@
-"""Scalar turbo programs shared by the PyTorch port's tests and
-``chip_smoke.py``: each plans to the scalar instructions only. Plain text,
-no imports, so the card-side script can use them without JAX."""
+"""Turbo programs shared by the PyTorch port's tests and ``chip_smoke.py``:
+scalar ones, then list and parallel-lane ones. Plain text, no imports, so
+the card-side script can use them without JAX."""
 
 # the JAX package's scalar turbo tests (tests/test_turbo.py)
 COPY_TYPES = """
@@ -301,6 +301,156 @@ USER_INPUT = """
 }
 """
 
+# list ops and parallel thread lanes (the JAX package's tests/test_turbo.py)
+LIST_SPINE = """
+{
+    default_state: {order_index: 1, inserts: {hist: ['a','b'], n: 0}},
+    order: [
+        {cmd:'list_append', list:'{hist}', item:'c-{n}', output_name:'hist'},
+        {cmd:'math', input:'length(hist)', output_name:'n'},
+        {cmd:'list_index', list:'{hist}', index:-1, output_name:'last'},
+        {cmd:'list_slice', list:'{hist}', from_index:1,
+         to_index:'{n} - 1', output_name:'head'},
+        {cmd:'list_join', list:'{head}', before:'[', between:',',
+         after:']', output_name:'joined'},
+        {cmd:'list_remove', list:'{hist}', item:'b', output_name:'hist2'},
+        {cmd:'list_concat', lists:['{head}','{hist2}'], output_name:'cat'},
+        {cmd:'for', name_list_map:{e:'{hist}'}, tasks:[
+            {cmd:'print', text:'<{e}>'},
+        ]},
+        {cmd:'print', text:'{joined} {last} {hist} {cat}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+LIST_EDGES = """
+{
+    default_state: {order_index: 1, inserts: {l: [3,1,'x']}},
+    order: [
+        {cmd:'list_slice', list:'{l}', from_index:1, to_index:0,
+         output_name:'s0'},
+        {cmd:'list_slice', list:'{l}', from_index:-2, to_index:9,
+         output_name:'s1'},
+        {cmd:'list_slice', list:'{l}', from_index:2, to_index:1,
+         output_name:'s2'},
+        {cmd:'list_remove', list:'{l}', item:'absent',
+         output_name:'r0'},
+        {cmd:'list_remove', list:'{l}', item:'x', output_name:'r1'},
+        {cmd:'list_join', list:'{s2}', before:'(', between:'-',
+         after:')', output_name:'j0'},
+        {cmd:'list_index', list:'{l}', index:'3', output_name:'i0'},
+        {cmd:'print', text:'{s0}|{s1}|{s2}|{r0}|{r1}|{j0}|{i0}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+FOR_DYNAMIC = """
+{
+    default_state: {order_index: 1, inserts: {lst: ['a','b',7], n: 0}},
+    order: [
+        {cmd:'for', name_list_map:{v: '{lst}'}, tasks:[
+            {cmd:'print', text:'{v};'},
+            {cmd:'math', input:'{n} + 1', output_name:'n'},
+        ]},
+        {cmd:'print', text:'last={v} n={n}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+PAR_RACE = """
+{
+    default_state: {order_index: 1, inserts: {x: '(unset)'}},
+    order: [
+        {cmd:'parallel_%(mode)s', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'lane0', output_name:'x'},
+                {cmd:'print', text:'[0:{x}]'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'lane1', output_name:'y'},
+                {cmd:'print', text:'[1]'},
+            ]},
+            {cmd:'set', item:'leaf', output_name:'z'},
+        ]},
+        {cmd:'print', text:'after x={x} y={y} z={z}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+MIDBLOCK_PARK = """
+{
+    default_state: {order_index: 1, inserts: {turn: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{turn} + 1', output_name:'turn'},
+        {cmd:'parallel_%(mode)s', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'gen-{turn}', output_name:'gen'},
+                {cmd:'print', text:'[{gen}]'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'user_input', prompt:'t{turn}? ',
+                 output_name:'ans'},
+                {cmd:'print', text:'<{ans}>'},
+            ]},
+        ]},
+        {cmd:'goto_map', text:'{turn}', target_maps:[
+            {'3': '@end'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'fin {gen} {ans}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+PARKED_FREEZE_PAR = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'parallel_race', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'v', output_name:'side'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'user_input', prompt:'x? ', output_name:'x'},
+                {cmd:'print', text:'{x}'},
+            ]},
+        ]},
+        {cmd:'print', text:'after'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+SPILL_PARALLEL = """
+{
+    default_state: {order_index: 1, inserts: {i: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{i} + 1', output_name:'i'},
+        {cmd:'print', text:'line {i} of text;'},
+        {cmd:'goto_map', text:'{i}', target_maps:[
+            {'9': '@par'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@par'},
+        {cmd:'parallel_wait', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'user_input', prompt:'? ', output_name:'a'},
+                {cmd:'print', text:'A={a};'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'print', text:'B;'},
+            ]},
+        ]},
+        {cmd:'print', text:'end'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
 # programs that run to DONE with the same output on host, JAX and port
 AGREEING = {
     "copy_types": COPY_TYPES,
@@ -320,6 +470,16 @@ AGREEING = {
     "output_overflow": OUTPUT_OVERFLOW,
     "int_dispatch": INT_DISPATCH,
     "await_ready": AWAIT_READY,
+}
+
+# list and lane programs that run to DONE with the same output on host,
+# JAX and port, with no host IO
+LIST_AGREEING = {
+    "list_spine": LIST_SPINE,
+    "list_edges": LIST_EDGES,
+    "for_dynamic": FOR_DYNAMIC,
+    "par_wait": PAR_RACE % {"mode": "wait"},
+    "par_race": PAR_RACE % {"mode": "race"},
 }
 
 
@@ -389,6 +549,150 @@ def random_scalar_program(rng) -> dict:
                            {"go": name}, {"go-*": name}, {"*x": name},
                            {"NULL": name}, {"1": name}, {"-5": name},
                            {"hel*o": name}, {"*": name}], 4)},
+                      {"cmd": "print", "text": "FELL"},
+                      {"cmd": "label", "name": name}]
+    return {"default_state": {"order_index": 1, "inserts": inserts},
+            "order": tasks, "named_tasks": {}, "save_states": {}}
+
+
+def random_program(rng) -> dict:
+    """A random program over the whole turbo instruction mix: scalar ops,
+    list ops (with a dynamic for), parallel_wait/race blocks whose lanes may
+    block on user_input, and top-level user_input and user_choice parks;
+    ``rng`` is a ``random.Random``. After the JAX package's generator
+    (tests/test_turbo.py:365). Lane items cannot raise: a raced raising lane
+    meets the reference's nondeterministic ``done.pop()``."""
+    keys = ["k1", "k2", "k3"]
+    inserts = {"k1": rng.choice(["hello", 7, "a b"]),
+               "k2": rng.randint(-9, 99), "w": "go",
+               "lst": [rng.choice(["e1", "x", str(rng.randint(0, 9))])
+                       for _ in range(rng.randint(0, 4))]}
+    tasks = []
+    n_labels = 0
+    for _ in range(rng.randint(2, 8)):
+        kind = rng.choice(["print", "set", "math", "delete", "label_goto",
+                           "goto_map", "for", "list_op", "list_op",
+                           "parallel", "user_input", "user_choice"])
+        if kind == "user_input":
+            tasks.append({"cmd": "user_input", "prompt": "q? ",
+                          "output_name": rng.choice(keys + ["ui"])})
+        elif kind == "user_choice":
+            tasks.append({"cmd": "user_choice", "description": "pick: ",
+                          "list": ["alpha", "beta", "gm"],
+                          "output_name": rng.choice(keys + ["uc"])})
+        elif kind == "list_op":
+            op = rng.choice(["append", "index", "slice", "join", "remove",
+                             "length", "dynfor", "concat", "new"])
+            if op == "append":
+                tasks.append({"cmd": "list_append", "list": "{lst}",
+                              "item": rng.choice(["z", "{w}", "i{k2}"]),
+                              "output_name": "lst"})
+            elif op == "index":
+                # bounded by the length: a short list raises on the host
+                tasks += [
+                    {"cmd": "math", "input": "length(lst)",
+                     "output_name": "n"},
+                    {"cmd": "goto_map", "text": "{n}",
+                     "target_maps": [{"0": f"@S{n_labels}"},
+                                     {"1": f"@S{n_labels}"},
+                                     {"*": "CONTINUE"}]},
+                    {"cmd": "list_index", "list": "{lst}",
+                     "index": rng.choice([1, -1, 2, "2"]),
+                     "output_name": rng.choice(keys)},
+                    {"cmd": "label", "name": f"@S{n_labels}"}]
+                n_labels += 1
+            elif op == "slice":
+                tasks.append({"cmd": "list_slice", "list": "{lst}",
+                              "from_index": rng.choice([1, 2, -2]),
+                              "to_index": rng.choice([0, 2, -1, 9,
+                                                      "length(lst)"]),
+                              "output_name": rng.choice(["lst", "l2"])})
+            elif op == "join":
+                tasks.append({"cmd": "list_join", "list": "{lst}",
+                              "before": rng.choice(["", "<"]),
+                              "between": rng.choice(["", ",", "-"]),
+                              "after": rng.choice(["", ">"]),
+                              "output_name": rng.choice(keys)})
+            elif op == "remove":
+                tasks.append({"cmd": "list_remove", "list": "{lst}",
+                              "item": rng.choice(["e1", "x", "absent"]),
+                              "output_name": "lst"})
+            elif op == "length":
+                tasks.append({"cmd": "math", "input": "length(lst) * 2",
+                              "output_name": rng.choice(keys)})
+            elif op == "concat":
+                tasks.append({"cmd": "list_concat",
+                              "lists": rng.choice([["{lst}", "{lst}"],
+                                                   ["{lst}"]]),
+                              "output_name": rng.choice(["lst", "l3"])})
+            elif op == "new":
+                tasks.append({"cmd": "set", "item": rng.sample(
+                    ["n1", "{w}", "m-{k2}", "x"], rng.randint(0, 3)),
+                    "output_name": "lst"})
+            else:
+                tasks.append({"cmd": "for", "name_list_map": {"dv": "{lst}"},
+                              "tasks": [{"cmd": "print",
+                                         "text": "[{dv}]"}]})
+        elif kind == "parallel":
+            lanes = []
+            for li in range(rng.randint(2, 3)):
+                if rng.random() < 0.4:
+                    body = [{"cmd": "user_input", "prompt": f"p{li}? ",
+                             "output_name": rng.choice(keys + ["pv"])}]
+                    if rng.random() < 0.5:
+                        body.append({"cmd": "print", "text": f"u{li};"})
+                else:
+                    body = [{"cmd": "set",
+                             "item": rng.choice(["p", "{w}", "q-{w}"]),
+                             "output_name": rng.choice(keys + ["pv"])}]
+                    if rng.random() < 0.5:
+                        body.append({"cmd": "print", "text": f"l{li};"})
+                lanes.append({"cmd": "serial", "tasks": body}
+                             if rng.random() < 0.7 else body[0])
+            tasks.append({"cmd": rng.choice(["parallel_wait",
+                                             "parallel_race"]),
+                          "tasks": lanes})
+        elif kind == "for":
+            n = rng.randint(1, 4)
+            var = rng.choice(["it", "jt"])
+            lists = {var: [rng.choice(["a", "b", str(rng.randint(0, 9))])
+                           for _ in range(n)]}
+            body = [{"cmd": "print", "text": "<{" + var + "}>"}]
+            if rng.random() < 0.5:
+                body.append({"cmd": "set", "item": "{" + var + "}!",
+                             "output_name": rng.choice(keys)})
+            tasks.append({"cmd": "for", "name_list_map": lists,
+                          "tasks": body})
+        elif kind == "print":
+            tasks.append({"cmd": "print", "text": "".join(
+                rng.choice(["t ", "x=", "{k1}", "{k2}", "{w}", "{lst}"])
+                for _ in range(rng.randint(0, 3)))})
+        elif kind == "set":
+            tasks.append({"cmd": "set", "item": rng.choice(
+                ["plain", str(rng.randint(-5, 50)), "{k2}", "v-{k2}-{w}"]),
+                "output_name": rng.choice(keys)})
+        elif kind == "math":
+            tasks.append({"cmd": "math", "input": rng.choice([
+                "1 + 2 * 3", "{k2} * 4 - 1", "max(1,{k2},3) - min(2,9)",
+                "(7 % 3) + {k2}", "sign({k2})", "{k2} % 5", "-{k2} + 100"]),
+                "output_name": rng.choice(keys)})
+        elif kind == "delete":
+            tasks.append({"cmd": "delete",
+                          "wildcards": [rng.choice(["k1", "k2", "k*"])]})
+        elif kind == "label_goto":
+            name = f"@L{n_labels}"
+            n_labels += 1
+            tasks += [{"cmd": "goto", "name": name},
+                      {"cmd": "print", "text": "SKIPPED"},
+                      {"cmd": "label", "name": name}]
+        else:
+            name = f"@M{n_labels}"
+            n_labels += 1
+            tasks += [{"cmd": "goto_map", "text": rng.choice(
+                          ["{w}", "{w}-{k2}", "fixed"]),
+                       "target_maps": [
+                           {"go": name}, {"go-*": name}, {"*x": name},
+                           {"NULL": name}, {"*": name}]},
                       {"cmd": "print", "text": "FELL"},
                       {"cmd": "label", "name": name}]
     return {"default_state": {"order_index": 1, "inserts": inserts},
