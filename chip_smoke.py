@@ -30,7 +30,24 @@ and prints no result):
 6. race-io through the lane servicing: every instance's race parks its
    input lane once per turn, 3 turns, answered "cgo"; 16,384 instances
    (cut from 131,072 as in phase 3); every park goes through the LaneRing,
-   and every instance ends DONE with the host engine's output and inserts.
+   and every instance ends DONE with the host engine's output and inserts;
+7. the brace-scan kernel against its plain version: 1,048,576 seeded random
+   rows over the bytes ``ab{}\\ `` at MS 96 and 512, every length from 0 to
+   MS, and curated edge rows; bit-identical, with the ms per call of both at
+   1,048,576 rows and at the bench's 131,072 x 96;
+8. the general engine at the bench's width (its second path): the
+   adventure program, the bench's general VMConfig, 131,072 instances; two
+   launches with every brace-scan call held against the plain version on
+   the same inputs; then the bench's measurement (one warm launch, 8
+   launches x 8 steps, no ring) with tasks/s and the brace scan's share of
+   the wall time;
+9. the general engine to DONE through the ring: the adventure program at 40
+   turns, 4,096 instances (cut from 131,072 because every instance parks
+   about 13 times, each a per-row host service); every instance DONE with
+   the host engine's output and inserts; ring_stats printed;
+10. the CLI on programs the turbo planner rejects: ``--engine device
+   --batch 4`` prints what the host CLI prints, through the general engine
+   and the brace-scan kernel.
 
 The last two lines of standard output are one JSON object naming each
 kernel with its launches on the main path, its largest deviation from the
@@ -50,6 +67,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SRC = "interpolation_engine_tpu_torch/csrc/turbo_step.cu"
 KERNEL_REPLACES = "interpolation_engine_tpu/vm/turbo.py:1879"
+SCAN_SRC = "interpolation_engine_tpu_torch/csrc/brace_scan.cu"
+SCAN_REPLACES = "interpolation_engine_tpu/ops/pallas_scan.py:87"
 SEED = 0
 
 
@@ -393,6 +412,268 @@ def phase6(card: str, tmp: str, n: int = 16_384) -> None:
         f"{elapsed:.3f} s, all DONE with {want[0]!r}")
 
 
+SCAN_EDGES = ["", "{", "}", "{a}", "\\{", "\\}", "a\\{", "{a\\}", "\\\\{",
+              "{}{", "}{", "{{a}}", "x{a}y\\{b\\}", "{a}" + "b" * 200 + "}",
+              "\\" * 40 + "{"]
+
+
+def scan_rows(n: int, ms: int, gen):
+    """n seeded random rows over ``ab{}\\ `` with every length from 0 to
+    ms, then the curated edge rows (with braces past their length)."""
+    import torch
+    alphabet = torch.tensor(list(b"ab{}\\ "), dtype=torch.uint8,
+                            device="cuda")
+    bufs = alphabet[torch.randint(0, 6, (n, ms), generator=gen,
+                                  device="cuda")]
+    lengths = (torch.arange(n, device="cuda") % (ms + 1)).to(torch.int32)
+    edge = torch.zeros((2 * len(SCAN_EDGES), ms), dtype=torch.uint8)
+    edge_len = []
+    for i, text in enumerate(SCAN_EDGES):
+        data = text.encode()[:ms]
+        for j, extra in enumerate((b"", b"}{}")):
+            row = (data + extra)[:ms]
+            edge[2 * i + j, :len(row)] = torch.tensor(list(row),
+                                                      dtype=torch.uint8)
+            edge_len.append(len(data))
+    bufs = torch.cat([bufs, edge.cuda()])
+    lengths = torch.cat([lengths, torch.tensor(edge_len, dtype=torch.int32,
+                                               device="cuda")])
+    return bufs.contiguous(), lengths.contiguous()
+
+
+def timed_calls(fn, calls: int = 5) -> float:
+    """ms per call of fn(), by CUDA events after one warm call."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def phase7(card: str) -> dict:
+    """The brace-scan kernel == its plain version, bit for bit."""
+    import torch
+    from interpolation_engine_tpu_torch.ops.brace_scan import (
+        brace_scan, brace_scan_reference)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    for ms in (96, 512):
+        bufs, lengths = scan_rows(1 << 20, ms, gen)
+        got = brace_scan(bufs, lengths)
+        want = brace_scan_reference(bufs, lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            raise AssertionError(f"phase 7: kernel and plain version differ "
+                                 f"on {bad} rows at MS {ms}")
+        for n in (bufs.shape[0], 131_072):
+            b, ln = bufs[:n].contiguous(), lengths[:n].contiguous()
+            times[(n, ms)] = (timed_calls(lambda: brace_scan(b, ln)),
+                              timed_calls(lambda: brace_scan_reference(b,
+                                                                       ln)))
+        log(f"phase 7 brace scan MS {ms} [{card}]: {bufs.shape[0]} rows "
+            f"bit-identical; kernel / plain ms per call: " + ", ".join(
+                f"{n} rows {k:.4f} / {p:.4f}"
+                for (n, m), (k, p) in times.items() if m == ms))
+        del bufs, lengths, got, want
+    return {"ms": times[(131_072, 96)][0], "plain_ms": times[(131_072, 96)][1]}
+
+
+GENERAL_CFG = dict(max_str=96, max_key=24, n_slots=12, arena_size=1024,
+                   pool_size=32, out_size=192, max_subst=6, max_stars=2,
+                   max_list=16, max_fix=4)   # bench.py _measure_general
+
+
+class CheckedScan:
+    """Stands in for the brace scan inside the interpolation kernel: calls
+    the kernel and, while ``check`` is set, the plain version on the same
+    inputs, compared at once; while ``timing`` is set, records CUDA events
+    around each kernel call."""
+
+    def __init__(self, kernel, plain):
+        self.kernel, self.plain = kernel, plain
+        self.check = self.timing = False
+        self.compared = self.worst = 0
+        self.events = []
+
+    def __call__(self, bufs, lengths):
+        import torch
+        if self.timing:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = self.kernel(bufs, lengths)
+        if self.timing:
+            ev[1].record()
+            self.events.append(ev)
+        if self.check:
+            want = self.plain(bufs, lengths)
+            diff = int((out.long() - want.long()).abs().max()) \
+                if out.numel() else 0
+            self.worst = max(self.worst, diff)
+            self.compared += 1
+            if diff:
+                raise AssertionError("phase 8: brace-scan kernel and plain "
+                                     "version differ on the main path")
+        return out
+
+    def seconds(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+def phase8(card: str, n: int = 131_072) -> dict:
+    """The general engine at the bench's width, brace scan checked."""
+    import bench
+    import torch
+    from interpolation_engine_tpu_torch._shared import vm_config
+    from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
+    from interpolation_engine_tpu_torch.ops import interp_kernel as ik
+    from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
+
+    runner = DeviceRunner(compile_src(bench.adventure_program()),
+                          vm_config.VMConfig(**GENERAL_CFG), device="cuda")
+    checked = CheckedScan(scan_mod.brace_scan, scan_mod.brace_scan_reference)
+    ik.scan_mod = type("ScanHook", (), {"brace_scan": checked})
+    inner = 8
+    try:
+        checked.check = True
+        b = runner.make_instances(n)
+        for _ in range(2):
+            b = runner.launch(b, inner)
+        torch.cuda.synchronize()
+        checked.check = False
+        if checked.compared == 0:
+            raise AssertionError("phase 8: no brace-scan call was compared")
+        log(f"phase 8 general adventure [{card}]: {checked.compared} "
+            f"brace-scan calls in the first 2 launches at {n} instances, "
+            f"each bit-identical to the plain version")
+        del b
+
+        # the bench's measurement, counted
+        batch = runner.make_instances(n)
+        torch.cuda.synchronize()
+        scan_mod.brace_scan.launches = 0
+        scan_mod.brace_scan_reference.launches = 0
+        t0 = time.perf_counter()
+        warm = runner.launch(batch, inner)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        del warm
+        state = batch
+        before = int(state.steps.long().sum())
+        checked.timing = True
+        t0 = time.perf_counter()
+        for _ in range(8):
+            state = runner.launch(state, inner)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        checked.timing = False
+        launches = scan_mod.brace_scan.launches
+        if launches <= 0 or scan_mod.brace_scan_reference.launches != 0:
+            raise AssertionError(
+                f"phase 8: main path launched the brace-scan kernel "
+                f"{launches} times and the plain version "
+                f"{scan_mod.brace_scan_reference.launches} times")
+    finally:
+        ik.scan_mod = scan_mod
+    steps = int(state.steps.long().sum()) - before
+    status = state.status
+    if not bool(((status == 0) | (status == 1) | (status == 2)).all()):
+        raise AssertionError("phase 8: a row ended in ERROR or OVERFLOW")
+    scan_s = checked.seconds()
+    log(f"phase 8 general adventure bench [{card}]: {n} instances, warm "
+        f"launch {warm_s:.3f} s, 8 launches x {inner} steps: {steps} steps "
+        f"in {elapsed:.3f} s = {steps / elapsed:.1f} tasks/s; {launches} "
+        f"brace-scan launches, {scan_s:.4f} s in the brace scan = "
+        f"{scan_s / elapsed:.4f} of wall time; running "
+        f"{int((status == 0).sum())}, parked {int((status == 2).sum())}")
+    return {"launches": launches, "max_abs_err": checked.worst}
+
+
+def phase9(card: str, tmp: str, n: int = 4096) -> None:
+    """The general engine to DONE through the ring."""
+    import bench
+    import torch
+    from interpolation_engine_tpu_torch._shared import io_manager, vm_config
+    from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
+    src = bench.adventure_program(t_max=40)
+    host = run_host(src, io_manager.IOManager(io_manager.BufferBackend()),
+                    tmp)
+    runner = DeviceRunner(compile_src(src), vm_config.VMConfig(**GENERAL_CFG),
+                          device="cuda")
+    t0 = time.perf_counter()
+    final = runner.run(runner.make_instances(n))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    want = (host["output"], dict(host["inserts"]))
+    for i, r in enumerate(runner.results(final)):
+        if r.status != vm_config.DONE or (r.output, r.inserts) != want:
+            raise AssertionError(f"phase 9: instance {i}: {r} != {want}")
+    log(f"phase 9 general adventure ring [{card}]: {n} instances (cut from "
+        f"131,072: about 13 per-row host services each), all DONE with the "
+        f"host's {len(want[0].encode())}-byte output and inserts in "
+        f"{elapsed:.3f} s; ring_stats {json.dumps(runner.ring_stats)}")
+
+
+def phase10(tmp: str, not_turbo: dict) -> None:
+    """The port's CLI routes a program the turbo planner rejects to the
+    general engine."""
+    from interpolation_engine_tpu_torch import cli
+    from interpolation_engine_tpu_torch._shared import planner
+    from interpolation_engine_tpu_torch.ops.brace_scan import brace_scan
+    from interpolation_engine_tpu_torch.ops.turbo_step import turbo_step
+    from interpolation_engine_tpu_torch.vm import driver
+    import io
+    for name, src in not_turbo.items():
+        try:
+            planner.plan_turbo(compile_src(src))
+        except planner.NotTurbo:
+            pass
+        else:
+            raise AssertionError(f"phase 10 {name}: the planner accepts it")
+        path = os.path.join(tmp, f"{name}.json5")
+        with open(path, "w") as f:
+            f.write(src)
+        host = subprocess.run(
+            [sys.executable, "-m", "interpolation_engine_tpu.cli", path],
+            cwd=ROOT, capture_output=True, text=True, check=True,
+            timeout=300).stdout
+        runs = []
+        launch = driver.DeviceRunner.launch
+
+        def counted(self, batch, inner, _launch=launch):
+            runs.append(batch.n)
+            return _launch(self, batch, inner)
+
+        brace_scan.launches = turbo_step.launches = 0
+        driver.DeviceRunner.launch = counted
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["--engine", "device", "--batch", "4", path])
+        finally:
+            driver.DeviceRunner.launch = launch
+        port = out.getvalue()
+        if rc != 0 or port != host:
+            raise AssertionError(f"phase 10 {name}: port CLI {port!r} (rc "
+                                 f"{rc}) != host {host!r}")
+        if not runs or set(runs) != {4} or brace_scan.launches <= 0 \
+                or turbo_step.launches != 0:
+            raise AssertionError(
+                f"phase 10 {name}: general-engine launches {len(runs)}, "
+                f"brace-scan launches {brace_scan.launches}, turbo "
+                f"launches {turbo_step.launches}")
+        log(f"phase 10 cli {name}: --engine device --batch 4 printed "
+            f"{port!r}, as the host CLI, through the general engine "
+            f"({len(runs)} launches, {brace_scan.launches} brace-scan "
+            f"launches)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -442,11 +723,18 @@ def main() -> int:
         phase4(tmp)
         main_path = phase5(card, tmp)
         phase6(card, tmp)
+        scan_times = phase7(card)
+        general = phase8(card)
+        phase9(card, tmp)
+        phase10(tmp, tp.NOT_TURBO)
     print(json.dumps({"kernels": [{
         "name": "turbo_step_kernel", "route": "cuda", "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES, "launches": main_path["launches"],
         "max_abs_err": max(worst, main_path["max_abs_err"]),
-        "ms": main_path["ms"], "plain_ms": main_path["plain_ms"]}]}))
+        "ms": main_path["ms"], "plain_ms": main_path["plain_ms"]}, {
+        "name": "brace_scan_kernel", "route": "cuda", "source": SCAN_SRC,
+        "replaces": SCAN_REPLACES, "launches": general["launches"],
+        "max_abs_err": general["max_abs_err"], **scan_times}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,11 +12,22 @@ planner, the exact host executor, IO and the parallel-lane ring) through
   one compiled kernel reads;
 * ``ops/turbo_step.py`` and ``csrc/turbo_step.cu`` — the step kernel,
   written by hand in CUDA C++, beside its plain PyTorch version;
-* ``vm/driver.py`` and ``cli.py`` — the ``--engine device`` entry point.
+* ``vm/bytestr.py``, ``vm/state.py``, ``ops/interp_kernel.py``,
+  ``ops/match_kernel.py`` and ``vm/step.py`` — the general engine: byte
+  strings, the per-instance store and its codecs, interpolation, wildcard
+  matching and the batched step, one handler per distinct pc;
+* ``ops/brace_scan.py`` and ``csrc/brace_scan.cu`` — the interpolation
+  loop's brace scan, written by hand in CUDA C++, beside its plain PyTorch
+  version;
+* ``vm/driver.py`` and ``cli.py`` — the general engine's ``DeviceRunner``
+  with its exact host ring, and the ``--engine device`` entry point.
 
-Every program the turbo planner accepts runs, lists and parallel thread
-lanes included; a value that outgrows its slot raises ``NotPorted``
-(promotion to a wider sibling batch is not ported yet).
+Every program the turbo planner accepts runs on the turbo engine, lists
+and parallel thread lanes included; a value that outgrows its slot raises
+``NotPorted`` (promotion to a wider sibling batch is not ported yet). A
+program the planner rejects (``NotTurbo``) runs on the general engine,
+which has 19 of the 30 opcodes; one holding another opcode raises
+``NotPorted`` naming it.
 """
 
 __version__ = "0.1.0"

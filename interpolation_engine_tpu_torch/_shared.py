@@ -23,5 +23,6 @@ from interpolation_engine_tpu.compiler import turbo as planner  # noqa: E402,F40
 from interpolation_engine_tpu.core import context, events, executor, runtime  # noqa: E402,F401
 from interpolation_engine_tpu.io import manager as io_manager  # noqa: E402,F401
 from interpolation_engine_tpu.programs import loader, validator  # noqa: E402,F401
+from interpolation_engine_tpu.core import interp as host_interp  # noqa: E402,F401
 from interpolation_engine_tpu.vm import config as vm_config  # noqa: E402,F401
-from interpolation_engine_tpu.vm import lanering  # noqa: E402,F401
+from interpolation_engine_tpu.vm import isa, lanering  # noqa: E402,F401

@@ -66,6 +66,8 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.turbo_step_launch.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.turbo_step_launch.restype = i
+    lib.brace_scan_launch.argtypes = [p] * 3 + [i] * 2 + [p]
+    lib.brace_scan_launch.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib

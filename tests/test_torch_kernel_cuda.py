@@ -95,3 +95,67 @@ def test_kernel_counts_its_launches(cuda):
     torch.cuda.synchronize()
     assert turbo_step.launches == before[0] + 1
     assert turbo_step_reference.launches == before[1]
+
+
+# ---------------------------------------------------------------------------
+# the brace-scan kernel (csrc/brace_scan.cu) and the general engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,ms", [(1, 7), (1, 96), (33, 31), (257, 96),
+                                  (1000, 130), (4099, 512), (5, 0)])
+def test_brace_scan_kernel_equals_plain(n, ms, cuda):
+    """Bit for bit on seeded rows over ``ab{}\\ `` with lengths in
+    [-3, MS + 5] (a length past MS counts as MS, a negative one as 0)."""
+    import numpy as np
+    from interpolation_engine_tpu_torch.ops.brace_scan import (
+        brace_scan, brace_scan_reference)
+    rng = np.random.default_rng(n * 1000 + ms)
+    alphabet = np.frombuffer(b"ab{}\\ ", np.uint8)
+    bufs = torch.from_numpy(alphabet[rng.integers(0, 6, (n, ms))]).to(cuda)
+    lens = torch.from_numpy(rng.integers(-3, ms + 6, n).astype(
+        np.int32)).to(cuda)
+    before = brace_scan.launches, brace_scan_reference.launches
+    got = brace_scan(bufs, lens)
+    want = brace_scan_reference(bufs, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert brace_scan.launches == before[0] + 1
+    assert brace_scan_reference.launches == before[1] + 1
+
+
+GENERAL = tp.general_programs(bench)
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL))
+def test_general_engine_cuda_equals_cpu_after_every_launch(name, cuda):
+    """The port's general engine on the card (brace-scan kernel) and on the
+    CPU (its plain version), through the ring: every field after every
+    launch."""
+    from interpolation_engine_tpu_torch._shared import io_manager, vm_config
+    from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
+    cfg = vm_config.VMConfig(max_str=96, max_key=24, n_slots=12,
+                             arena_size=1024, pool_size=32, out_size=192,
+                             max_subst=6, max_stars=2, max_list=16,
+                             max_fix=4)
+    compiled = compile_src(GENERAL[name])
+    snaps = {}
+    for dev in ("cpu", cuda):
+        runner = DeviceRunner(compiled, cfg, io_factory=lambda i: (
+            io_manager.IOManager(io_manager.ScriptedBackend(["ok"] * 24))),
+            device=dev)
+        launch, rec = runner.launch, snaps.setdefault(str(dev), [])
+
+        def recorded(batch, k, launch=launch, rec=rec):
+            batch = launch(batch, k)
+            rec.append(batch.to_numpy())
+            return batch
+        runner.launch = recorded
+        final = runner.run(runner.make_instances(3), inner_steps=16,
+                           max_rounds=400)
+        assert all(r.status == vm_config.DONE
+                   for r in runner.results(final))
+    cpu, card = snaps["cpu"], snaps[str(cuda)]
+    assert len(cpu) == len(card)
+    for k, (a, b) in enumerate(zip(cpu, card)):
+        for f in a:
+            assert (a[f] == b[f]).all(), (k, f)

@@ -1,6 +1,7 @@
-"""Turbo programs shared by the PyTorch port's tests and ``chip_smoke.py``:
-scalar ones, then list and parallel-lane ones. Plain text, no imports, so
-the card-side script can use them without JAX."""
+"""Programs shared by the PyTorch port's tests and ``chip_smoke.py``:
+scalar turbo ones, list and parallel-lane ones, the ones the turbo planner
+rejects, and the general engine's set. Plain text, no imports, so the
+card-side script and the CUDA tests can use them without JAX."""
 
 # the JAX package's scalar turbo tests (tests/test_turbo.py)
 COPY_TYPES = """
@@ -450,6 +451,72 @@ SPILL_PARALLEL = """
     named_tasks: {}, save_states: {},
 }
 """
+
+# programs the turbo planner rejects (NotTurbo), from the JAX package's
+# tests/test_turbo_eligibility.py: they run on the general engine
+NOT_TURBO = {
+    # :124-134, one key holds a string, then a list
+    "list_then_scalar": """
+    {
+        default_state: {order_index: 1, inserts: {x: 'a'}},
+        order: [
+            {cmd:'print', text:'x={x}'},
+            {cmd:'set', item:['l', 'm'], output_name:'x'},
+            {cmd:'print', text:' then {x}'},
+        ],
+        named_tasks: {}, save_states: {},
+    }
+    """,
+    # :73-77, with a print
+    "dynamic_output_name": """
+    {default_state: {order_index: 1, inserts: {k: 'n'}},
+     order: [{cmd:'set', item:'v', output_name:'{k}'},
+             {cmd:'print', text:'n={n}'}],
+     named_tasks: {}, save_states: {}}
+    """,
+}
+
+
+def _cut(src: str, old: str, new: str) -> str:
+    assert old in src
+    return src.replace(old, new)
+
+
+def general_programs(bench) -> dict:
+    """The general engine's test programs (``bench`` is the repo's
+    bench.py): the bench's, cut to a few loop turns; ``for`` loops;
+    parallel_wait/parallel_race blocks; the turbo programs whose opcodes
+    the general engine has; and the NOT_TURBO ones."""
+    return {
+        "spine": _cut(bench.BENCH_PROGRAM, "'spin-512'", "'spin-20'"),
+        "interp": _cut(bench.INTERP_PROGRAM, "'1073741824'", "'6'"),
+        "ring": _cut(_cut(bench.RING_PROGRAM, "sel: 'spin'", "sel: 'park'"),
+                     "'1073741824'", "'3'"),
+        "adventure": bench.adventure_program(t_max=12),
+        "for_loop": FOR_LOOP,
+        "for_mixed": FOR_MIXED,
+        "for_nested": FOR_NESTED,
+        "for_dynamic": FOR_DYNAMIC,
+        "par_wait": PAR_RACE % {"mode": "wait"},
+        "par_race": PAR_RACE % {"mode": "race"},
+        "midblock_wait": MIDBLOCK_PARK % {"mode": "wait"},
+        "midblock_race": MIDBLOCK_PARK % {"mode": "race"},
+        "parked_freeze_par": PARKED_FREEZE_PAR,
+        "spill_parallel": SPILL_PARALLEL,
+        "user_input": USER_INPUT,
+        "await_ready": AWAIT_READY,
+        # the turbo programs whose opcodes the general engine has
+        "copy_types": COPY_TYPES,
+        "newline_exact": NEWLINE_ROUTE % {"key": "hello"},
+        "newline_affix": NEWLINE_ROUTE % {"key": "he*llo"},
+        "floor_div_mod": FLOOR_DIV_MOD,
+        "int32_min_print": INT32_MIN_PRINT,
+        "parse_digits": PARSE_DIGITS,
+        "brace_in_hole": BRACE_IN_HOLE,
+        "int_dispatch": INT_DISPATCH,
+        **NOT_TURBO,
+    }
+
 
 # programs that run to DONE with the same output on host, JAX and port
 AGREEING = {
