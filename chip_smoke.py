@@ -11,11 +11,12 @@ and prints no result):
    adventure and race-io programs and a set of scalar, list and
    parallel-lane test programs, at 8,192 instances, the CUDA step kernel and
    ``turbo_step_reference`` run the same launches on the card and must leave
-   bit-identical regs, sbuf, out and meta after every launch;
+   bit-identical regs, sbuf, out and meta after every launch; then the step
+   kernel's attributes (registers, local, static and dynamic shared bytes);
 2. the spine at the bench's size: 131,072 instances,
    ``TurboEngine.run_async`` to the end through the kernel; every instance
    DONE with the host engine's output; tasks/s of kernel and plain version
-   over the same launches;
+   over the same launches, and the kernel's bound;
 3. the ring: the bench's ring program with every instance parking three
    times on a canned user_input, 16,384 instances (cut from 131,072 because
    every park takes the exact per-row host path), outputs and inserts equal
@@ -26,8 +27,11 @@ and prints no result):
 5. the main path, the bench's default workload at its widths: the adventure
    program (lists, a parallel race per turn) at 131,072 instances; kernel
    and plain version bit-identical over the first two launches, with both
-   times; then ``run_async`` to the end at 40 turns through the kernel,
-   every instance DONE with the host engine's output and inserts;
+   times; the kernel's ms per launch at K = 1, 8 and 64, with the staging
+   alone (every instance at a pc past the program), and on a batch of DONE
+   instances (the skip path) beside a copy of the batch; then ``run_async`` to the end at 40 turns through the kernel,
+   every instance DONE with the host engine's output and inserts, with the
+   steps' share of the wall time;
 6. race-io through the lane servicing: every instance's race parks its
    input lane once per turn, 3 turns, answered "cgo"; 16,384 instances
    (cut from 131,072 as in phase 3); every park goes through the LaneRing,
@@ -61,8 +65,11 @@ and prints no result):
    3 turns; every instance equal to the host, the summed steps equal to
    phase 6's, and the ring wall time beside phase 6's.
 
-The host oracle is the port's own copy of the host runtime. The last two
-lines of standard output are one JSON object naming each kernel with its
+Every phase that launches the step kernel prints its tile (``launch_plan``:
+T instances a block, the shared bytes). A kernel's time is taken with the
+card asleep while the host queues the launches, so that it is the card's
+time alone. The host oracle is the port's own copy of the host runtime.
+The last two lines of standard output are one JSON object naming each kernel with its
 launches on its main path, its largest deviation from the plain version,
 its time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes it must move over 3.35 TB/s, or its
@@ -91,6 +98,7 @@ SHARDED_REPLACES = "interpolation_engine_tpu/vm/turbo.py:1991"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 OPS_PER_S = 67e12             # float32 outside the tensor cores, the same
+QUEUE_CYCLES = 20_000_000     # the card's sleep while launches queue: 11 ms
 
 
 def log(msg: str) -> None:
@@ -176,6 +184,50 @@ def step_bound(tables, batch, steps: int) -> dict:
                  steps)
 
 
+def tile_line(tables, batch, tile: int) -> str:
+    """The step kernel's tile for this batch (``launch_plan``, the plan the
+    wrapper launches with)."""
+    from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
+    plan = launch_plan(tables, batch, tile)
+    where = "shared" if plan.lits_off >= 0 else "device"
+    return (f"tile T={plan.tile} instances, {plan.smem} bytes of dynamic "
+            f"shared memory a block, literals in {where} memory")
+
+
+def attributes_line() -> str:
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        kernel_attributes)
+    a = kernel_attributes(0)
+    return (f"turbo_step_kernel attributes: {a['registers']} registers, "
+            f"{a['local_bytes']} local bytes per thread, "
+            f"{a['static_shared_bytes']} static shared bytes, "
+            f"{a['max_dynamic_shared_bytes']} dynamic shared bytes allowed, "
+            f"at most {a['max_threads']} threads a block")
+
+
+def timed_steps(eng) -> list:
+    """CUDA events around every step ``eng.run`` launches (the main path's
+    kernel launches); returns the list the pairs go into."""
+    import torch
+    events = []
+    make = eng.step_fn
+
+    def step_fn(n):
+        step = make(n)
+
+        def timed_step(batch):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(batch)
+            ev[1].record()
+            events.append(ev)
+            return out
+        return timed_step
+    eng.step_fn = step_fn
+    return events
+
+
 def mesh_step_bound(tables, batch, row_steps, mesh, offsets,
                     launches: int) -> dict:
     """The sharded step's bound: its devices run at once, so it is the
@@ -225,13 +277,19 @@ def phase1(progs: dict, n: int = 8192, launches: int = 4) -> int:
         log(f"phase 1 {name}: {launches} launches x 16 steps at {n} "
             f"instances bit-identical (running {int((status == 0).sum())}, "
             f"done {int((status == 1).sum())}, "
-            f"parked {int((status == 2).sum())})")
+            f"parked {int((status == 2).sum())}); "
+            f"{tile_line(eng.tables, b, eng.tcfg.tile)}")
     return worst
 
 
-def timed(fn, batch, launches: int) -> float:
-    """Seconds for ``launches`` calls of fn on batch, by CUDA events."""
+def timed(fn, batch, launches: int, queued: bool = False) -> float:
+    """Seconds for ``launches`` calls of fn on batch, by CUDA events. With
+    ``queued`` the card first sleeps while the host enqueues the calls, so
+    the span holds the card's time alone, not the host's time between
+    launches (a kernel launch costs the host about 0.2 ms)."""
     import torch
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -267,16 +325,21 @@ def phase2(card: str, tmp: str, n: int = 131_072) -> None:
     del warm
     L = 2
     kern, ref = clone(b0), clone(b0)
-    t_kern = timed(lambda b: turbo_step(eng.tables, b, K), kern, L)
+    t_kern = timed(lambda b: turbo_step(eng.tables, b, K), kern, L, True)
     t_ref = timed(lambda b: turbo_step_reference(eng.tables, b, K), ref, L)
     if max_abs_diff(kern, ref):
         raise AssertionError("phase 2: kernel and plain version differ")
     steps = int(kern.regs[:, C_STEPS].long().sum())
+    spine_bound = step_bound(eng.tables, b0, steps // L)
     del kern, ref
     log(f"phase 2 spine, first {L} launches x {K} steps at {n} instances "
         f"[{card}]: kernel {steps / t_kern:.1f} tasks/s "
         f"({t_kern / L * 1e3:.3f} ms/launch), plain version "
-        f"{steps / t_ref:.1f} tasks/s ({t_ref / L * 1e3:.3f} ms/launch)")
+        f"{steps / t_ref:.1f} tasks/s ({t_ref / L * 1e3:.3f} ms/launch); "
+        f"bound {spine_bound['bound_ms']:.4f} ms "
+        f"({spine_bound['bound_by']}), the kernel at "
+        f"{spine_bound['bound_ms'] / (t_kern / L) / 10:.1f} % of it; "
+        f"{tile_line(eng.tables, b0, tcfg.tile)}")
 
     # the main path: run_async to the end, counted
     turbo_step.launches = 0
@@ -378,7 +441,7 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     from interpolation_engine_tpu_torch.ops.turbo_step import (
         turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
-        C_STEPS, TurboConfig, TurboEngine)
+        C_PC, C_STATUS, C_STEPS, DONE, TurboConfig, TurboEngine)
 
     # bench.py's adventure config without the TPU-only tile and leaf
     tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
@@ -393,18 +456,38 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     del warm
     L = 2
     kern, ref = clone(b0), clone(b0)
-    t_kern = timed(lambda b: turbo_step(eng.tables, b, K), kern, L)
+    t_kern = timed(lambda b: turbo_step(eng.tables, b, K), kern, L, True)
     t_ref = timed(lambda b: turbo_step_reference(eng.tables, b, K), ref, L)
     worst = max_abs_diff(kern, ref)
     if worst:
         raise AssertionError("phase 5: kernel and plain version differ")
     steps = int(kern.regs[:, C_STEPS].long().sum())
     launch_bound = step_bound(eng.tables, b0, steps // L)
-    del kern, ref, b0
     log(f"phase 5 adventure, first {L} launches x {K} steps at {n} "
         f"instances [{card}]: kernel {steps / t_kern:.1f} tasks/s "
         f"({t_kern / L * 1e3:.3f} ms/launch), plain version "
-        f"{steps / t_ref:.1f} tasks/s ({t_ref / L * 1e3:.3f} ms/launch)")
+        f"{steps / t_ref:.1f} tasks/s ({t_ref / L * 1e3:.3f} ms/launch); "
+        f"{tile_line(eng.tables, b0, tcfg.tile)}")
+    del kern, ref
+    # per-launch against per-step cost: the first L launches at K = 1, 8, 64
+    per_k = {k: timed(lambda b, k=k: turbo_step(eng.tables, b, k), clone(b0),
+                      L, True) / L * 1e3 for k in (1, 8, 64)}
+    log(f"phase 5 adventure ms/launch by K [{card}]: " + ", ".join(
+        f"K={k} {ms:.3f}" for k, ms in per_k.items()))
+    # the copies alone: every instance RUNNING at a pc past the program,
+    # so each tile is staged in and out and steps nothing; and a batch of
+    # DONE instances, whose tiles read their status column only
+    staged, done = clone(b0), clone(b0)
+    staged.regs[:, C_PC] = eng.tables.host.n_instr
+    done.regs[:, C_STATUS] = DONE
+    t_stage = timed(lambda b: turbo_step(eng.tables, b, K), staged, L, True)
+    t_done = timed(lambda b: turbo_step(eng.tables, b, K), done, L, True)
+    t_copy = timed(clone, done, L, True)
+    log(f"phase 5 adventure, the staging alone [{card}]: "
+        f"{t_stage / L * 1e3:.3f} ms/launch; a batch of DONE instances "
+        f"{t_done / L * 1e3:.3f} ms/launch; a copy of the batch (clone of "
+        f"its tensors, the staging's bytes) {t_copy / L * 1e3:.3f} ms")
+    del b0, staged, done
 
     # the main path: run_async to the end at 40 turns, counted
     src = bench.adventure_program(t_max=40)
@@ -412,6 +495,7 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
                     tmp)
     eng = TurboEngine(compile_src(src), tcfg, device="cuda")
     batch = eng.make_batch(n)
+    events = timed_steps(eng)
     torch.cuda.synchronize()
     turbo_step.launches = 0
     turbo_step_reference.launches = 0
@@ -419,6 +503,7 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     final = eng.run(batch)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
     launches = turbo_step.launches
     if launches <= 0 or turbo_step_reference.launches != 0:
         raise AssertionError(
@@ -429,7 +514,8 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     log(f"phase 5 adventure main path [{card}]: {n} instances DONE with "
         f"the host's {len(host['output'].encode())}-byte output, {launches} "
         f"kernel launches, {eng.ring_stats['parks']} parks, {total} steps "
-        f"in {elapsed:.3f} s = {total / elapsed:.1f} tasks/s end to end")
+        f"in {elapsed:.3f} s = {total / elapsed:.1f} tasks/s end to end; "
+        f"the steps {kernel_s * 1e3:.3f} ms of it ({kernel_s / elapsed:.4f})")
     return {"launches": launches, "ms": t_kern / L * 1e3,
             "plain_ms": t_ref / L * 1e3, "max_abs_err": worst,
             **launch_bound}
@@ -472,7 +558,8 @@ def phase6(card: str, tmp: str, n: int = 16_384) -> dict:
     total = int(final.regs[:, C_STEPS].long().sum())
     log(f"phase 6 race-io ring [{card}]: {n} instances, {parks} lane parks "
         f"in {eng.ring_stats['rounds']} rounds, ring wall time "
-        f"{elapsed:.3f} s, {total} steps, all DONE with {want[0]!r}")
+        f"{elapsed:.3f} s, {total} steps, all DONE with {want[0]!r}; "
+        f"{tile_line(eng.tables, final, eng.tcfg.tile)}")
     return {"seconds": elapsed, "steps": total}
 
 
@@ -742,13 +829,17 @@ def phase10(tmp: str, not_turbo: dict) -> None:
             f"launches)")
 
 
-def timed_on(fn, batch, launches: int, devices) -> float:
+def timed_on(fn, batch, launches: int, devices,
+             queued: bool = False) -> float:
     """Seconds for ``launches`` calls of fn(batch), by CUDA events on every
-    device that runs them: the longest of the devices' spans."""
+    device that runs them: the longest of the devices' spans (``queued``
+    as in ``timed``)."""
     import torch
     marks = {}
     for dev in dict.fromkeys(devices):
         with torch.cuda.device(dev):
+            if queued:
+                torch.cuda._sleep(QUEUE_CYCLES)
             marks[dev] = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
             marks[dev][0].record()
@@ -824,12 +915,13 @@ def phase11(card: str, tmp: str, n: int = 131_072,
     t_one, t_many = [], []
     for which in (t_one, t_many, t_many, t_one):
         if which is t_one:
-            which.append(timed_on(step_one, clone(b0), L, mesh[:1]))
+            which.append(timed_on(step_one, clone(b0), L, mesh[:1], True))
         else:
             which.append(timed_on(step_many, shard_turbo_batch(b0, mesh), L,
-                                  mesh))
+                                  mesh, True))
     t_plain = timed_on(lambda b: sharded_turbo_step_reference(
         many.step_tables, b, K), shard_turbo_batch(b0, mesh), L, mesh)
+    tile = tile_line(one.tables, b0, tcfg.tile)
     del b0
     t_many_all, t_many = t_many, sum(t_many) / len(t_many)
 
@@ -840,7 +932,7 @@ def phase11(card: str, tmp: str, n: int = 131_072,
         f"unsharded step and to its plain version on the same shards; "
         f"ms/step in turns: unsharded {ms(t_one[:1])}, sharded "
         f"{ms(t_many_all)}, unsharded {ms(t_one[1:])}; plain version on "
-        f"the shards {t_plain / L * 1e3:.3f}")
+        f"the shards {t_plain / L * 1e3:.3f}; {tile}")
 
     # the sharded main path: run_async to the end at 40 turns, counted
     src40 = bench.adventure_program(t_max=40)
@@ -994,6 +1086,7 @@ def main() -> int:
     log(f"build: {build.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s")
     worst = phase1(progs)
+    log(attributes_line())
     with tempfile.TemporaryDirectory() as tmp:
         phase2(card, tmp)
         phase3(card, tmp)

@@ -22,14 +22,34 @@
 // (its items may read the list they replace); every other list write goes
 // in place, in an order that reads each source cell before it is written.
 //
-// What bounds it on this card: memory traffic on the per-instance rows
-// (a 128-int register row, the string and element rows, the output row,
-// the meta plane), with almost no arithmetic. The first design does
-// nothing about that yet: each thread walks its own rows, so neighbouring
-// threads touch addresses a row apart and every access is uncoalesced.
-// That is the first thing a later performance PR should look at (a
-// transposed or shared-memory-staged layout, the program tables in shared
-// memory).
+// What bounds it on this card. A VM step does almost no arithmetic: it is
+// a chain of dependent loads (status, pc, the instruction row, the slot
+// row, a register, then the bytes) and byte loops over W-byte rows, one
+// thread per instance. Run from device memory (the first design), every
+// access of a warp touched 32 rows a row apart and every link of the chain
+// paid device-memory latency: 3 % of the byte bound. So the kernel does
+// what the TPU kernel did with VMEM: one block takes a tile of T
+// consecutive instances (ops/turbo_step.py tile_plan sizes T and the
+// layout from the bytes per instance and the card's shared memory, 227 KB
+// a block on an H100) and
+//   1. stage in: copies the program tables (the flat int32 buffer, parsed
+//      once per block, and the literals when they are small) and the
+//      tile's register, string, output and meta rows into shared memory,
+//      neighbouring threads on neighbouring 16-byte units of the batch,
+//      with asynchronous copies (cp.async) so that many are in flight;
+//   2. run: each thread steps its instance up to K times on shared memory,
+//      its render buffer and scratch row there too (no stack buffer);
+//   3. stage out: writes the tile back the same way, once.
+// Barriers sit only between the phases. A tile with no RUNNING instance
+// reads its status column and nothing else. In shared memory every row of
+// an instance is padded to an odd number of words, so that a warp reading
+// one column or one byte of its rows hits 32 distinct banks. What bounds
+// the kernel now is the steps: on an H100 (chip_smoke.py phase 5, adventure
+// at 131,072 instances and K = 64) staging in and out alone takes under a
+// fifth of a launch, about the time of a plain copy of the batch, and each
+// step is a chain of dependent shared-memory loads and byte loops per
+// thread with only about 4 warps stepping on each SM (shared memory holds
+// about 110 adventure instances an SM), so latency sets the pace.
 //
 // Semantics are those of ops/turbo_step.py turbo_step_reference, bit for
 // bit after every launch: ints wrap at 32 bits (computed in 64 bits and
@@ -37,8 +57,14 @@
 // Python's floor division and modulo, a lane parks wherever the TPU kernel
 // parks, and a list write leaves the cells past the count zero.
 
+// nvcc compiles the whole file. The kernel, its launch and the one PTX copy
+// sit behind __CUDACC__, so that a host compiler can build the rest: the
+// CPU tests (tests/test_torch_turbo_tile.py) run the phases that way.
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -51,7 +77,9 @@ constexpr int T_EMPTY = 0, T_INT = 1, T_STR = 2, T_LIST = 3;
 constexpr int T_FREE = 0, T_NEW = 1, T_READY = 2, T_WAIT = 3, T_DONE = 4;
 constexpr int PM_NONE = 0, PM_WAIT = 1, PM_DRAIN = 3;
 
-constexpr int MAX_W = 512;       // per-thread render buffer
+constexpr int MAX_W = 512;       // widest slot
+constexpr int MAX_TILE = 256;    // ops/turbo_step.py MAX_TILE; threads a block
+constexpr int PROG_BYTES = 256;  // ops/turbo_step.py PROG_BYTES
 constexpr int MAX_STACK = 16;    // vm/turbo_tables.py RPN_MAX_STACK
 constexpr int HEADER = 32;       // vm/turbo_tables.py HEADER
 constexpr int OFF0 = 8;          // vm/turbo_tables.py _OFF0
@@ -97,8 +125,9 @@ struct Prog {
   int nt;              // thread lanes
 };
 
-// One instance's state: its register row, its string and element rows, its
-// output row, its list meta planes and its scratch row.
+// One instance's state, staged in shared memory: its register row, its
+// string and element rows, its output row, its list meta planes and its
+// scratch row.
 struct Lane {
   int* regs;
   uint8_t* sbuf;       // row 0 of this instance; row r is r * rstride on
@@ -135,21 +164,6 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return q;
 }
 
-// Python str(int) of an int32, INT32_MIN included. Returns the length.
-__device__ int int_to_dec(int v, uint8_t* d) {
-  unsigned int mag = v < 0 ? ~(unsigned int)v + 1u : (unsigned int)v;
-  uint8_t rev[10];
-  int nd = 0;
-  do {
-    rev[nd++] = (uint8_t)('0' + mag % 10u);
-    mag /= 10u;
-  } while (mag);
-  int o = 0;
-  if (v < 0) d[o++] = '-';
-  while (nd) d[o++] = rev[--nd];
-  return o;
-}
-
 // Optionally signed decimal of at most 9 digits; anything else is not ok.
 __device__ bool parse_dec(const uint8_t* b, int ln, int* out) {
   int start = (ln > 0 && (b[0] == '-' || b[0] == '+')) ? 1 : 0;
@@ -170,6 +184,14 @@ __device__ bool brace_or_escape(const uint8_t* b, int n) {
   return false;
 }
 
+// dst[from, to) := 0, by words where dst is 4-byte aligned
+__device__ __forceinline__ void zero_bytes(uint8_t* dst, int from, int to) {
+  int j = from;
+  for (; j < to && ((uintptr_t)(dst + j) & 3); ++j) dst[j] = 0;
+  for (; j + 4 <= to; j += 4) *reinterpret_cast<uint32_t*>(dst + j) = 0u;
+  for (; j < to; ++j) dst[j] = 0;
+}
+
 // Append n bytes of src at offset *ln, keeping what fits in W.
 __device__ void put(uint8_t* buf, int W, int* ln, const uint8_t* src, int n) {
   int lim = min(n, W - *ln);
@@ -185,16 +207,31 @@ __device__ void put_str(uint8_t* buf, int W, int* ln, const char* s) {
   }
 }
 
+// Append Python str(v) of an int32 (INT32_MIN included), keeping what fits
+// in W: the digits are written in place, last first, with no stack buffer.
 __device__ void put_int(uint8_t* buf, int W, int* ln, int v) {
-  uint8_t d[11];
-  put(buf, W, ln, d, int_to_dec(v, d));
+  unsigned int mag = v < 0 ? ~(unsigned int)v + 1u : (unsigned int)v;
+  int nd = 1;
+  for (unsigned int m = mag; m >= 10u; m /= 10u) ++nd;
+  if (v < 0 && *ln < W) buf[*ln] = '-';
+  const int o = *ln + (v < 0 ? 1 : 0);
+  for (int k = nd - 1; k >= 0; --k) {
+    if (o + k < W) buf[o + k] = (uint8_t)('0' + mag % 10u);
+    mag /= 10u;
+  }
+  *ln = o + nd;
 }
 
 __device__ void copy_row(uint8_t* dst, const uint8_t* src, int W) {
-  if ((W & 15) == 0 && (((uintptr_t)dst | (uintptr_t)src) & 15) == 0) {
+  const uintptr_t at = (uintptr_t)dst | (uintptr_t)src;
+  if ((W & 15) == 0 && (at & 15) == 0) {
     const uint4* s = reinterpret_cast<const uint4*>(src);
     uint4* d = reinterpret_cast<uint4*>(dst);
     for (int j = 0; j < W / 16; ++j) d[j] = s[j];
+  } else if ((W & 3) == 0 && (at & 3) == 0) {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    for (int j = 0; j < W / 4; ++j) d[j] = s[j];
   } else {
     for (int j = 0; j < W; ++j) dst[j] = src[j];
   }
@@ -204,7 +241,7 @@ __device__ void copy_row(uint8_t* dst, const uint8_t* src, int W) {
 __device__ void put_row(uint8_t* dst, const uint8_t* src, int n, int W) {
   n = max(0, min(n, W));
   for (int j = 0; j < n; ++j) dst[j] = src[j];
-  for (int j = n; j < W; ++j) dst[j] = 0;
+  zero_bytes(dst, n, W);
 }
 
 // ---- list cells -------------------------------------------------------------
@@ -234,7 +271,7 @@ __device__ void set_cell(const Prog& g, const Lane& L, const int* d, int e,
   uint8_t* bd = cell(g, L, d, e);
   int n = vbuf == nullptr ? 0 : max(0, min(vln, g.ew));
   for (int j = 0; j < n; ++j) bd[j] = vbuf[j];
-  for (int j = n; j < g.ew; ++j) bd[j] = 0;
+  zero_bytes(bd, n, g.ew);
 }
 
 __device__ void zero_cell(const Prog& g, const Lane& L, const int* d, int e) {
@@ -319,7 +356,7 @@ __device__ int render(const Prog& g, const Lane& L, int seg0, int nseg,
   const int W = g.W;
   int ln = 0;
   render_at(g, L, seg0, nseg, buf, &ln, missing, park);
-  for (int q = min(ln, W); q < W; ++q) buf[q] = 0;
+  zero_bytes(buf, min(ln, W), W);
   if (ln > W) {
     *park = true;
     ln = W;
@@ -514,7 +551,7 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       return;
     case OP_CLEAR:
       L.regs[C_CLREPOCH] += 1;
-      for (int j = 0; j < OW; ++j) L.out[j] = 0;
+      zero_bytes(L.out, 0, OW);
       L.regs[C_OUTLEN] = 0;
       advance(L, false, pc + 1);
       return;
@@ -966,66 +1003,332 @@ __device__ void lane_yield(const Prog& g, const Lane& L) {
   L.regs[tpc_col(g, cur)] = pc;
 }
 
-__global__ void turbo_step_kernel(const int* __restrict__ flat,
-                                  const uint8_t* __restrict__ lits,
-                                  int* regs, uint8_t* sbuf, uint8_t* out,
-                                  int* meta, uint8_t* scratch, int n,
-                                  int regw, int W, int OW, int scr, int K) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Prog g;
-  g.P = flat[0];
-  g.E = flat[3];
-  g.ew = flat[4];
-  g.pack = flat[5];
-  g.nt = flat[6];
-  g.ins = flat + flat[OFF0 + 0];
-  g.segs = flat + flat[OFF0 + 1];
-  g.ents = flat + flat[OFF0 + 2];
-  g.rpn = flat + flat[OFF0 + 3];
-  g.ints = flat + flat[OFF0 + 4];
-  g.pairs = flat + flat[OFF0 + 5];
-  g.elems = flat + flat[OFF0 + 6];
-  g.slots = flat + flat[OFF0 + 7];
-  g.lit_len = flat + flat[OFF0 + 8];
-  g.items = flat + flat[OFF0 + 9];
-  g.dpairs = flat + flat[OFF0 + 10];
-  g.lits = lits;
-  g.W = W;
-  const size_t cells = 3 * (size_t)g.E;
-  Lane L{regs + (size_t)i * regw, sbuf + (size_t)i * W, (size_t)n * W,
-         out + (size_t)i * OW, meta + (size_t)i * cells, (size_t)n * cells,
-         scratch + (size_t)i * scr};
-  uint8_t buf[MAX_W];
-  for (int k = 0; k < K; ++k) {
-    if (L.regs[C_STATUS] != RUNNING) break;
-    int pc = L.regs[C_PC];
-    if (pc < 0 || pc >= g.P) break;
-    step(g, L, pc, buf, OW);
+
+// ---- the tile ---------------------------------------------------------------
+
+// Where a block's tile lives in dynamic shared memory, in bytes: the fields
+// of ops/turbo_step.py TilePlan, in its order. T instances per block; the
+// parsed program (Prog) at 0, then the tables, then the state. `*_is` is the
+// stride from one instance to the next, `*_ps` from one meta plane or sbuf
+// row to the next. lits_off < 0: the literals stay in device memory.
+struct Tile {
+  int tile, smem;
+  int flat_off, flat_bytes, lits_off, lits_bytes;
+  int regs_off, regs_is;
+  int meta_off, meta_is, meta_ps;
+  int sbuf_off, sbuf_is, sbuf_ps;
+  int out_off, out_is;
+  int scr_off, scr_is;
+  int buf_off, buf_is;
+  int rows, planes, cells;
+};
+constexpr int TILE_FIELDS = 23;
+static_assert(sizeof(Tile) == TILE_FIELDS * sizeof(int), "Tile is flat");
+static_assert(sizeof(Prog) <= PROG_BYTES, "Prog fits its region");
+
+struct Args {
+  const int* flat;
+  const uint8_t* lits;
+  int* regs;      // (n, regw)
+  uint8_t* sbuf;  // (rows, n, W)
+  uint8_t* out;   // (n, OW)
+  int* meta;      // (planes, n, cells)
+  int n, regw, W, OW, K;
+  Tile tl;
+};
+
+#ifdef __CUDACC__
+// The one copy of the prologue that is PTX: bytes (4 or 16) from device
+// memory to shared memory, asynchronously, so that a thread keeps many in
+// flight; copy_async_wait waits for the calling thread's copies.
+__device__ __forceinline__ void copy_async(void* s, const void* g,
+                                           int bytes) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+                 "l"(g) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
+                 "l"(g) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+#endif
+
+// Copy `planes` planes of cnt rows of len bytes between the batch and the
+// tile, block-wide (thread t of nt). In the batch, plane p's rows lie back
+// to back from g + p * gps; in shared memory row i of plane p is at
+// s + p * sps + i * sis. Neighbouring threads take neighbouring units of the
+// batch: 16 bytes where the alignment allows, else 4, else 1. A 16-byte
+// unit whose shared address is only 4-aligned (a padded row) moves as four
+// words. IN copies asynchronously (the caller waits); out is plain stores.
+template <bool IN>
+__device__ __forceinline__ void stage(uint8_t* s, uint8_t* g, int planes,
+                                      size_t gps, int cnt, int len, int sps,
+                                      int sis, int t, int nt) {
+  if (planes <= 0 || cnt <= 0 || len <= 0) return;
+  const uintptr_t ga = (uintptr_t)g | (uintptr_t)gps;
+  const uintptr_t sa = (uintptr_t)s | (uintptr_t)sps | (uintptr_t)sis;
+  int u = 1;
+  if ((len & 3) == 0 && (ga & 3) == 0 && (sa & 3) == 0)
+    u = ((len & 15) == 0 && (ga & 15) == 0) ? 16 : 4;
+  const bool whole = (sa & 15) == 0;
+  const int per = len / u, total = planes * cnt * per;
+  // unit q is unit k of row i of plane p; from one of this thread's units
+  // to the next is nt units: di rows and dk units on
+  int p = t / (cnt * per), i = t % (cnt * per) / per, k = t % per;
+  const int di = nt / per, dk = nt % per;
+#pragma unroll 4
+  for (int q = t; q < total; q += nt) {
+    uint8_t* gq = g + (size_t)p * gps + ((size_t)i * per + k) * u;
+    uint8_t* sq = s + (size_t)p * sps + (size_t)i * sis + (size_t)k * u;
+    k += dk;
+    i += di;
+    if (k >= per) {
+      k -= per;
+      ++i;
+    }
+    while (i >= cnt) {
+      i -= cnt;
+      ++p;
+    }
+    if (u == 1) {
+      if (IN) *sq = *gq;
+      else *gq = *sq;
+    } else if (IN) {
+      if (u == 16 && whole) {
+        copy_async(sq, gq, 16);
+      } else {
+        for (int w = 0; w < u; w += 4) copy_async(sq + w, gq + w, 4);
+      }
+    } else if (u == 16) {
+      uint4 v;
+      if (whole) {
+        v = *reinterpret_cast<const uint4*>(sq);
+      } else {
+        const uint32_t* sw = reinterpret_cast<const uint32_t*>(sq);
+        v.x = sw[0];
+        v.y = sw[1];
+        v.z = sw[2];
+        v.w = sw[3];
+      }
+      *reinterpret_cast<uint4*>(gq) = v;
+    } else {
+      *reinterpret_cast<uint32_t*>(gq) =
+          *reinterpret_cast<const uint32_t*>(sq);
+    }
+  }
+}
+
+// The tile's register, meta, string and output rows (instances i0 ..
+// i0 + cnt), into shared memory or back.
+template <bool IN>
+__device__ __forceinline__ void stage_state(const Args& a, int i0, int cnt,
+                                            int t, int nt, uint8_t* sm) {
+  const Tile& tl = a.tl;
+  const size_t n = (size_t)a.n, rb = 4 * (size_t)a.regw,
+               cb = 4 * (size_t)tl.cells;
+  stage<IN>(sm + tl.regs_off, reinterpret_cast<uint8_t*>(a.regs) + i0 * rb,
+            1, 0, cnt, (int)rb, 0, tl.regs_is, t, nt);
+  stage<IN>(sm + tl.meta_off, reinterpret_cast<uint8_t*>(a.meta) + i0 * cb,
+            tl.planes, n * cb, cnt, (int)cb, tl.meta_ps, tl.meta_is, t, nt);
+  stage<IN>(sm + tl.sbuf_off, a.sbuf + (size_t)i0 * a.W, tl.rows,
+            n * a.W, cnt, a.W, tl.sbuf_ps, tl.sbuf_is, t, nt);
+  stage<IN>(sm + tl.out_off, a.out + (size_t)i0 * a.OW, 1, 0, cnt, a.OW, 0,
+            tl.out_is, t, nt);
+}
+
+__device__ __forceinline__ int tile_rows(const Args& a, int b) {
+  return min(a.tl.tile, a.n - b * a.tl.tile);
+}
+
+// Phase 0, per thread: is this thread's instance RUNNING at entry? A block
+// none of whose instances is stages nothing.
+__device__ __forceinline__ bool running_at_entry(const Args& a, int b,
+                                                 int t) {
+  const int i = b * a.tl.tile + t;
+  return t < tile_rows(a, b) &&
+         a.regs[(size_t)i * a.regw + C_STATUS] == RUNNING;
+}
+
+// Phase 1, block-wide: thread 0 parses the header once for the block into
+// the Prog at 0 (its tables point into shared memory); every thread copies
+// its share of the tables and of the tile's state.
+__device__ __forceinline__ void stage_in(const Args& a, int b, int t, int nt,
+                                         uint8_t* sm) {
+  const Tile& tl = a.tl;
+  if (t == 0) {
+    const int* h = a.flat;
+    const int* f = reinterpret_cast<const int*>(sm + tl.flat_off);
+    Prog g;
+    g.P = h[0];
+    g.E = h[3];
+    g.ew = h[4];
+    g.pack = h[5];
+    g.nt = h[6];
+    g.ins = f + h[OFF0 + 0];
+    g.segs = f + h[OFF0 + 1];
+    g.ents = f + h[OFF0 + 2];
+    g.rpn = f + h[OFF0 + 3];
+    g.ints = f + h[OFF0 + 4];
+    g.pairs = f + h[OFF0 + 5];
+    g.elems = f + h[OFF0 + 6];
+    g.slots = f + h[OFF0 + 7];
+    g.lit_len = f + h[OFF0 + 8];
+    g.items = f + h[OFF0 + 9];
+    g.dpairs = f + h[OFF0 + 10];
+    g.lits = tl.lits_off >= 0 ? sm + tl.lits_off : a.lits;
+    g.W = a.W;
+    *reinterpret_cast<Prog*>(sm) = g;
+  }
+  stage<true>(sm + tl.flat_off,
+              reinterpret_cast<uint8_t*>(const_cast<int*>(a.flat)), 1, 0, 1,
+              tl.flat_bytes, 0, 0, t, nt);
+  if (tl.lits_off >= 0)
+    stage<true>(sm + tl.lits_off, const_cast<uint8_t*>(a.lits), 1, 0, 1,
+                tl.lits_bytes, 0, 0, t, nt);
+  const int i0 = b * tl.tile;
+  stage_state<true>(a, i0, tile_rows(a, b), t, nt, sm);
+  copy_async_wait();
+}
+
+// Phase 2, per thread: up to K steps of this thread's instance, on shared
+// memory. Returning early is stopping: no barrier inside.
+__device__ __forceinline__ void run(const Args& a, int b, int t,
+                                    uint8_t* sm) {
+  const Tile& tl = a.tl;
+  if (t >= tile_rows(a, b)) return;
+  const Prog g = *reinterpret_cast<const Prog*>(sm);
+  const size_t at = t;
+  const Lane L{reinterpret_cast<int*>(sm + tl.regs_off + at * tl.regs_is),
+               sm + tl.sbuf_off + at * tl.sbuf_is, (size_t)tl.sbuf_ps,
+               sm + tl.out_off + at * tl.out_is,
+               reinterpret_cast<int*>(sm + tl.meta_off + at * tl.meta_is),
+               (size_t)tl.meta_ps / 4, sm + tl.scr_off + at * tl.scr_is};
+  uint8_t* buf = sm + tl.buf_off + at * tl.buf_is;
+  for (int k = 0; k < a.K; ++k) {
+    if (L.regs[C_STATUS] != RUNNING) return;
+    const int pc = L.regs[C_PC];
+    if (pc < 0 || pc >= g.P) return;
+    step(g, L, pc, buf, a.OW);
     lane_yield(g, L);
   }
 }
+
+// Phase 3, block-wide: the tile back to the batch, once.
+__device__ __forceinline__ void stage_out(const Args& a, int b, int t, int nt,
+                                          uint8_t* sm) {
+  stage_state<false>(a, b * a.tl.tile, tile_rows(a, b), t, nt, sm);
+}
+
+// The kernel's arguments from the launch's; false when out of range.
+bool make_args(Args* a, const int* flat, const uint8_t* lits, int* regs,
+               uint8_t* sbuf, uint8_t* out, int* meta, int n, int regw,
+               int width, int out_width, int k_steps, const int* plan,
+               int plan_len) {
+  if (plan_len != TILE_FIELDS || width <= 0 || width > MAX_W) return false;
+  *a = Args{flat, lits, regs, sbuf, out, meta, n, regw, width, out_width,
+            k_steps, Tile{}};
+  memcpy(&a->tl, plan, sizeof(Tile));
+  return a->tl.tile > 0 && a->tl.tile <= MAX_TILE &&
+         a->tl.smem >= PROG_BYTES;
+}
+
+#ifdef __CUDACC__
+// One block of MAX_TILE threads per tile of T instances: all of them stage,
+// the first T step one instance each (more warps than instances keep more
+// copies in flight). Every thread reaches every barrier: a thread with
+// nothing to step skips `run` only.
+__global__ void __launch_bounds__(MAX_TILE)
+    turbo_step_kernel(const Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int b = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
+  if (!__syncthreads_or(running_at_entry(a, b, t))) return;
+  stage_in(a, b, t, nt, smem);
+  __syncthreads();
+  run(a, b, t, smem);
+  __syncthreads();
+  stage_out(a, b, t, nt, smem);
+}
+#endif
 
 }  // namespace
 
 static_assert(HEADER == 32 && OFF0 + 11 <= HEADER, "flat header size");
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+#ifdef __CUDACC__
+constexpr int MAX_DEVICES = 64;
+
+// Launch on `stream` with the tile plan `plan` (TILE_FIELDS ints, host
+// memory); returns cudaGetLastError() (0 on success).
 extern "C" int turbo_step_launch(const int* flat, const uint8_t* lits,
                                  int* regs, uint8_t* sbuf, uint8_t* out,
-                                 int* meta, uint8_t* scratch, int n, int regw,
-                                 int width, int out_width, int scratch_bytes,
-                                 int k_steps, int block, void* stream) {
+                                 int* meta, int n, int regw, int width,
+                                 int out_width, int k_steps, const int* plan,
+                                 int plan_len, void* stream) {
   if (n <= 0 || k_steps <= 0) return 0;
-  if (width <= 0 || width > MAX_W || block <= 0 || block > 1024)
+  Args a;
+  if (!make_args(&a, flat, lits, regs, sbuf, out, meta, n, regw, width,
+                 out_width, k_steps, plan, plan_len))
     return (int)cudaErrorInvalidValue;
-  const int grid = (n + block - 1) / block;
-  turbo_step_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      flat, lits, regs, sbuf, out, meta, scratch, n, regw, width, out_width,
-      scratch_bytes, k_steps);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  // dynamic shared memory above 48 KB needs the opt-in, once per device
+  static bool opted[MAX_DEVICES];
+  if (!opted[dev]) {
+    int most = 0;
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(turbo_step_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = true;
+  }
+  const int grid = (n + a.tl.tile - 1) / a.tl.tile;
+  turbo_step_kernel<<<grid, MAX_TILE, a.tl.smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The compiled kernel's attributes on the current device: registers per
+// thread, local (stack) bytes per thread, static shared bytes, the most
+// threads a block may have and the dynamic shared bytes allowed now.
+extern "C" int turbo_step_attributes(int* out5) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, turbo_step_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out5[0] = fa.numRegs;
+  out5[1] = (int)fa.localSizeBytes;
+  out5[2] = (int)fa.sharedSizeBytes;
+  out5[3] = fa.maxThreadsPerBlock;
+  out5[4] = fa.maxDynamicSharedSizeBytes;
+  return 0;
+}
+
+// The current device's shared memory in bytes: on each SM, the most one
+// block may take (the opt-in), and what stays reserved for each resident
+// block (ops/turbo_step.py SharedMemory).
+extern "C" int turbo_shared_memory(int* out3) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out3[0],
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out3[1],
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out3[2],
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return (int)e;
 }
 
 extern "C" const char* turbo_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+#endif

@@ -85,8 +85,13 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.turbo_step_launch.argtypes = [p] * 7 + [i] * 7 + [p]
+    ints = ctypes.POINTER(i)
+    lib.turbo_step_launch.argtypes = [p] * 6 + [i] * 5 + [ints, i, p]
     lib.turbo_step_launch.restype = i
+    lib.turbo_step_attributes.argtypes = [ints]
+    lib.turbo_step_attributes.restype = i
+    lib.turbo_shared_memory.argtypes = [ints]
+    lib.turbo_shared_memory.restype = i
     lib.brace_scan_launch.argtypes = [p] * 3 + [i] * 2 + [p]
     lib.brace_scan_launch.restype = i
     lib.turbo_error_string.argtypes = [i]

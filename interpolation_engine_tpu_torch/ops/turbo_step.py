@@ -24,12 +24,19 @@ A park inside a parallel block suspends the current thread lane (the lane
 yield of the TPU kernel): its state becomes WAIT and its saved pc the
 parked pc. The host ring decides which lane runs next.
 
+The kernel runs one block per tile of consecutive instances, staged in
+shared memory; ``tile_plan`` sizes the tile and lays it out for the card's
+shared memory, and the wrapper hands the plan to the kernel
+(``launch_plan``: built once per shape and kept with the tables).
+
 Each function counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import ctypes
+from dataclasses import astuple, dataclass, field
+from functools import cached_property
 
 import torch
 
@@ -44,6 +51,10 @@ C_CURTID, C_PARMODE, C_PARJOIN, C_PAREPOCH, C_CLREPOCH, C_BASE = \
 T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = 0, 1, 2, 3, 4
 PM_NONE, PM_WAIT, PM_DRAIN = 0, 1, 3
 MAX_WIDTH = 512          # csrc/turbo_step.cu MAX_W
+MAX_TILE = 256           # csrc/turbo_step.cu MAX_TILE: threads per block
+PROG_BYTES = 256         # csrc/turbo_step.cu PROG_BYTES: the parsed program
+ROW_PAD = 4              # bytes past a byte row's 16-byte round-up
+BLOCKS_PER_SM = 2        # the tile is sized for this many blocks an SM
 _POW10 = [10 ** k for k in range(10)]
 
 
@@ -55,6 +66,8 @@ class StepTables:
     host: tt.TurboTables
     flat: torch.Tensor   # int32
     lits: torch.Tensor   # (L, W) uint8
+    # launch_plan's plans, by the batch's shapes and the tile cap
+    plans: dict = field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def on(cls, host: tt.TurboTables, device) -> "StepTables":
@@ -102,10 +115,172 @@ def _check(tables: StepTables, batch) -> None:
         raise ValueError(f"tables on {tables.flat.device}, batch on {dev}")
 
 
-def turbo_step(tables: StepTables, batch, k_steps: int, block: int = 128):
+@dataclass(frozen=True)
+class SharedMemory:
+    """A card's shared memory, in bytes: on each SM, the most one block may
+    take (the opt-in), and what stays reserved for each resident block."""
+    per_sm: int
+    per_block: int
+    reserved: int
+
+
+# NVIDIA H100 (sm_90): 228 KB on each SM, of which one block may take 227 KB
+H100_SHARED = SharedMemory(per_sm=233_472, per_block=232_448, reserved=1024)
+
+
+def shared_memory(device) -> SharedMemory:
+    """CUDA ``device``'s shared memory (``cudaDeviceGetAttribute``)."""
+    from .build import load
+    lib = load()
+    vals = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        rc = lib.turbo_shared_memory(vals)
+    if rc != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: CUDA error {rc} "
+                           f"({lib.turbo_error_string(rc).decode()})")
+    return SharedMemory(*vals)
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """Where one block's tile of ``tile`` instances lives in dynamic shared
+    memory, in bytes: the kernel's ``Tile`` (``csrc/turbo_step.cu``), field
+    for field and in this order. The parsed program takes the first
+    ``PROG_BYTES``; ``*_off`` is a region's offset, ``*_is`` the stride
+    from one instance to the next, ``*_ps`` from one meta plane or sbuf row
+    to the next (row r of instance t of the sbuf region is at
+    ``sbuf_off + r * sbuf_ps + t * sbuf_is``). ``lits_off`` is -1 when the
+    literals stay in device memory. ``rows``, ``planes`` and ``cells`` are
+    the batch's R, M and 3E."""
+    tile: int
+    smem: int
+    flat_off: int
+    flat_bytes: int
+    lits_off: int
+    lits_bytes: int
+    regs_off: int
+    regs_is: int
+    meta_off: int
+    meta_is: int
+    meta_ps: int
+    sbuf_off: int
+    sbuf_is: int
+    sbuf_ps: int
+    out_off: int
+    out_is: int
+    scr_off: int
+    scr_is: int
+    buf_off: int
+    buf_is: int
+    rows: int
+    planes: int
+    cells: int
+
+    @cached_property
+    def c_fields(self):
+        """The fields, in order, as the C array of ints the launch takes."""
+        vals = astuple(self)
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def _r16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def tile_plan(tables: StepTables, batch, tile: int = 128,
+              shared: SharedMemory = H100_SHARED) -> TilePlan:
+    """The kernel's tile on a card with ``shared`` memory: T instances per
+    block (at most ``tile`` and ``MAX_TILE``), as many as fit in a block's
+    share when ``BLOCKS_PER_SM`` blocks share an SM (fewer blocks when not
+    even one instance fits), and the layout of the program tables and of
+    the tile's state in it.
+
+    Each region starts 16-byte aligned. Per instance, the register row and
+    each meta plane take an odd number of words, so that the 32 threads of
+    a warp reading one column hit 32 distinct banks; a byte row (string,
+    output, scratch and render rows) takes its bytes rounded up to 16 plus
+    ``ROW_PAD``, 4, an odd number of words too, so the kernel's byte loops
+    hit distinct banks, and rows are copied by words instead of 16-byte
+    units. On an H100 that ran a little faster than a pad of 16 (16-byte
+    rows, 4-way conflicts on byte loops) and far faster than a pad of 0
+    (32-way conflicts), and two blocks an SM faster than one or three.
+    The literals are staged when they take at most an eighth of the
+    block's budget; else they stay in device memory. Raises ValueError
+    when one instance does not fit beside the tables."""
+    regs, sbuf, out, meta = batch
+    regw, (rows, _, W), ow = regs.shape[1], sbuf.shape, out.shape[1]
+    planes, cells = meta.shape[0], meta.shape[2]
+    flat_bytes, lits_bytes = 4 * tables.flat.numel(), tables.lits.numel()
+
+    def odd_words(n):
+        return 4 * (n | 1)
+
+    def byte_row(n):
+        return _r16(n) + ROW_PAD if n else 0
+    regs_is, meta_is = odd_words(regw), odd_words(cells)
+    sbuf_is, out_is, buf_is = byte_row(W), byte_row(ow), byte_row(W)
+    scr_is = byte_row(tables.host.scratch_bytes)
+    per_instance = (regs_is + planes * meta_is + rows * sbuf_is + out_is
+                    + scr_is + buf_is)
+
+    def layout(t, lits_shared):
+        off = {}
+        at = PROG_BYTES
+        for name, size in (("flat", flat_bytes),
+                           ("lits", lits_bytes if lits_shared else 0),
+                           ("regs", t * regs_is),
+                           ("meta", planes * t * meta_is),
+                           ("sbuf", rows * t * sbuf_is), ("out", t * out_is),
+                           ("scr", t * scr_is), ("buf", t * buf_is)):
+            off[name] = at
+            at += _r16(size)
+        return off, at
+
+    for bps in range(BLOCKS_PER_SM, 0, -1):
+        budget = min(shared.per_block, shared.per_sm // bps - shared.reserved)
+        lits_shared = 8 * _r16(lits_bytes) <= budget
+        fixed = layout(0, lits_shared)[1]
+        t = min(tile, MAX_TILE, max(budget - fixed, 0) // per_instance)
+        while t > 0 and layout(t, lits_shared)[1] > budget:
+            t -= 1
+        if t > 0:
+            break
+    else:
+        raise ValueError(
+            f"one instance needs {per_instance} bytes of shared memory beside "
+            f"{fixed} bytes of tables; a block has {shared.per_block}")
+    off, total = layout(t, lits_shared)
+    return TilePlan(
+        tile=t, smem=total, flat_off=off["flat"], flat_bytes=flat_bytes,
+        lits_off=off["lits"] if lits_shared else -1, lits_bytes=lits_bytes,
+        regs_off=off["regs"], regs_is=regs_is, meta_off=off["meta"],
+        meta_is=meta_is, meta_ps=t * meta_is, sbuf_off=off["sbuf"],
+        sbuf_is=sbuf_is, sbuf_ps=t * sbuf_is, out_off=off["out"],
+        out_is=out_is, scr_off=off["scr"], scr_is=scr_is,
+        buf_off=off["buf"], buf_is=buf_is, rows=rows, planes=planes,
+        cells=cells)
+
+
+def launch_plan(tables: StepTables, batch, tile: int = 128) -> TilePlan:
+    """The plan ``turbo_step`` launches ``batch`` with on its card:
+    ``tile_plan`` for the card's shared memory, made once for each shape of
+    batch and kept with ``tables`` (which live on that card)."""
+    regs, sbuf, out, meta = batch
+    key = (tuple(regs.shape), tuple(sbuf.shape), out.shape[1],
+           tuple(meta.shape), tile)
+    plan = tables.plans.get(key)
+    if plan is None:
+        plan = tables.plans[key] = tile_plan(
+            tables, batch, tile, shared_memory(regs.device))
+    return plan
+
+
+def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
     """``k_steps`` VM steps on every RUNNING lane of ``batch`` (a
     ``TurboBatch`` of regs (N, REGW) int32, sbuf (R, N, W) uint8, out
-    (N, OW) uint8, meta (M, N, 3E) int32), in place; returns ``batch``."""
+    (N, OW) uint8, meta (M, N, 3E) int32), in place; returns ``batch``.
+    On the card, one block per tile of ``launch_plan`` (at most ``tile``
+    instances a block)."""
     _check(tables, batch)
     regs, sbuf, out, meta = batch
     if regs.device.type == "cpu":
@@ -115,18 +290,15 @@ def turbo_step(tables: StepTables, batch, k_steps: int, block: int = 128):
     if sbuf.shape[2] > MAX_WIDTH:
         raise ValueError(f"width {sbuf.shape[2]} > kernel maximum "
                          f"{MAX_WIDTH}")
-    n = regs.shape[0]
-    scr = tables.host.scratch_bytes
-    scratch = torch.empty((n, scr), dtype=torch.uint8, device=regs.device) \
-        if scr else None
     from .build import load
     lib = load()
     with torch.cuda.device(regs.device):
+        plan = launch_plan(tables, batch, tile)
         rc = lib.turbo_step_launch(
             tables.flat.data_ptr(), tables.lits.data_ptr(), regs.data_ptr(),
-            sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), n, regs.shape[1],
-            sbuf.shape[2], out.shape[1], scr, int(k_steps), int(block),
+            sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(), regs.shape[0],
+            regs.shape[1], sbuf.shape[2], out.shape[1], int(k_steps),
+            plan.c_fields, len(plan.c_fields),
             torch.cuda.current_stream(regs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"turbo_step_kernel launch failed: CUDA error "
@@ -138,8 +310,24 @@ def turbo_step(tables: StepTables, batch, k_steps: int, block: int = 128):
 turbo_step.launches = 0
 
 
-def sharded_turbo_step(tables: dict, batch, k_steps: int,
-                       block: int = 128):
+def kernel_attributes(device) -> dict:
+    """The compiled step kernel's attributes on CUDA ``device``
+    (``cudaFuncGetAttributes``): registers and local (stack) bytes per
+    thread, static shared bytes, the most threads a block may have, and the
+    dynamic shared bytes allowed (the opt-in, after the first launch)."""
+    from .build import load
+    lib = load()
+    vals = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = lib.turbo_step_attributes(vals)
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {rc} "
+                           f"({lib.turbo_error_string(rc).decode()})")
+    return dict(zip(("registers", "local_bytes", "static_shared_bytes",
+                     "max_threads", "max_dynamic_shared_bytes"), vals))
+
+
+def sharded_turbo_step(tables: dict, batch, k_steps: int, tile: int = 128):
     """``turbo_step`` on every shard of a ``ShardedTurboBatch``
     (``parallel/mesh.py``), in place; ``tables`` maps each mesh device to
     the plan's ``StepTables`` there. Each shard launches on its device's
@@ -150,7 +338,7 @@ def sharded_turbo_step(tables: dict, batch, k_steps: int,
     by ``turbo_step``); CPU shards run the plain version."""
     on_card = False
     for shard, _ in batch.parts():
-        turbo_step(tables[shard.regs.device], shard, k_steps, block)
+        turbo_step(tables[shard.regs.device], shard, k_steps, tile)
         on_card |= shard.regs.device.type == "cuda"
     if on_card:
         sharded_turbo_step.launches += 1

@@ -78,7 +78,8 @@ C_BASE = 9
 
 @dataclass(frozen=True)
 class TurboConfig:
-    tile: int = 128     # threads (instances) per CUDA block
+    tile: int = 128     # most instances per CUDA block (ops/turbo_step.py
+    #                     tile_plan takes fewer where shared memory is short)
     width: int = 128    # slot string bytes
     out_width: int = 256
     k_steps: int = 32   # VM steps per kernel launch
@@ -319,10 +320,10 @@ def build_sharded_step_fn(plan_tables, tcfg: TurboConfig, mesh):
     each distinct device of the mesh once (``step.tables``); shards on one
     device share them."""
     tables = tables_on(plan_tables, make_mesh(devices=mesh))
-    k, block = tcfg.k_steps, tcfg.tile
+    k, tile = tcfg.k_steps, tcfg.tile
 
     def step(batch: ShardedTurboBatch) -> ShardedTurboBatch:
-        return sharded_turbo_step(tables, batch, k, block)
+        return sharded_turbo_step(tables, batch, k, tile)
     step.tables = tables
     return step
 
@@ -407,7 +408,7 @@ class TurboEngine:
     def make_batch(self, n: int, args: list = ()):
         """N fresh instances: one prototype row, encoded on the host and
         broadcast on the device. Nothing is padded: the kernel masks the
-        ragged last block itself. Under a mesh, a ``ShardedTurboBatch``
+        ragged last tile itself. Under a mesh, a ``ShardedTurboBatch``
         split over its devices."""
         ctx = context
         inserts = dict(self.compiled.program["default_state"]["inserts"])
@@ -592,7 +593,7 @@ class TurboEngine:
         """``step(batch) -> batch``: k_steps VM steps on every RUNNING lane
         of an n-row batch, updating its tensors in place (the TPU's
         ``input_output_aliases``); under a mesh, on every shard."""
-        tables, k, block = self.tables, self.tcfg.k_steps, self.tcfg.tile
+        tables, k, tile = self.tables, self.tcfg.k_steps, self.tcfg.tile
 
         def step(batch):
             if _n_rows(batch) != n:
@@ -603,8 +604,8 @@ class TurboEngine:
                 raise ValueError("a sharded batch needs an engine over a "
                                  "mesh, and the reverse")
             if self.mesh is not None:
-                return sharded_turbo_step(self.step_tables, batch, k, block)
-            return turbo_step(tables, batch, k, block)
+                return sharded_turbo_step(self.step_tables, batch, k, tile)
+            return turbo_step(tables, batch, k, tile)
         return step
 
     # ---- host ring -----------------------------------------------------------

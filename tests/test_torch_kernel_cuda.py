@@ -117,6 +117,137 @@ def test_sharded_step_on_two_shards_equals_the_unsharded_kernel(cuda):
     assert turbo_step.launches == before[1] + 6 * 3
 
 
+# ---- the tile design: ragged tiles, wide rows, scratch, skipped tiles -------
+
+ADVENTURE = TurboConfig(width=128, out_width=128, k_steps=16, list_cap=12,
+                        elem_width=32)
+LIST_LITERAL = ("{default_state: {order_index: 1, inserts: {l: ['a'], k: 7}}"
+                ", order: [{cmd:'set', item:['x{l}', 'y', '{k}'], "
+                "output_name:'l'}, {cmd:'print', text:'v={l}'}], "
+                "named_tasks: {}, save_states: {}}")
+
+
+def held_to_plain(eng, batch, k, launches, spread=True):
+    """Kernel and plain version from the same state (with each instance's
+    own loop counter unless ``spread`` is false), bit for bit after every
+    launch; returns the kernel's batch."""
+    for key in ("i", "turn"):
+        slot = eng.plan.slot_of.get(key)
+        if slot is not None and spread:
+            gen = torch.Generator().manual_seed(batch.regs.shape[0])
+            batch.regs[:, eng.cols.sint(slot)] = torch.randint(
+                0, 40, (batch.regs.shape[0],), generator=gen,
+                dtype=torch.int32).to(batch.regs.device)
+    kern = type(batch)(*(t.clone() for t in batch))
+    for launch in range(launches):
+        turbo_step(eng.tables, kern, k)
+        turbo_step_reference(eng.tables, batch, k)
+        torch.cuda.synchronize()
+        for name, a, b in zip(batch._fields, kern, batch):
+            assert torch.equal(a, b), (launch, name)
+    return kern
+
+
+@pytest.mark.parametrize("rows", ["1", "T-1", "T+1", "3T+5"])
+def test_kernel_on_ragged_tiles(rows, cuda):
+    from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
+    eng = TurboEngine(compile_src(bench.adventure_program()), ADVENTURE,
+                      device=cuda)
+    T = launch_plan(eng.tables, eng.make_batch(1)).tile
+    n = {"1": 1, "T-1": T - 1, "T+1": T + 1, "3T+5": 3 * T + 5}[rows]
+    held_to_plain(eng, eng.make_batch(n), 16, 4)
+
+
+@pytest.mark.parametrize("shape", ["width512", "width80", "list_literal"])
+def test_kernel_on_wide_narrow_and_scratch_shapes(shape, cuda):
+    """Adventure at width 512 (literals left in device memory), at width
+    80 with 32-byte elements (row tails unused), and a list literal whose
+    scratch row lives in shared memory."""
+    src, tcfg = {
+        "width512": (bench.adventure_program(), TurboConfig(
+            width=512, out_width=512, k_steps=16, list_cap=12,
+            elem_width=128)),
+        "width80": (bench.adventure_program(), TurboConfig(
+            width=80, out_width=192, k_steps=16, list_cap=12,
+            elem_width=32)),
+        "list_literal": (LIST_LITERAL, ADVENTURE)}[shape]
+    eng = TurboEngine(compile_src(src), tcfg, device=cuda)
+    if shape == "list_literal":
+        assert eng.tables.host.scratch_bytes > 0
+    held_to_plain(eng, eng.make_batch(333), 16, 4)
+
+
+def test_kernel_leaves_tiles_without_a_running_instance(cuda):
+    """The first tiles hold only PARKED and DONE instances: the kernel
+    skips them, leaves them as they were, and runs the rest."""
+    from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        C_STATUS, DONE, PARKED)
+    eng = TurboEngine(compile_src(bench.adventure_program()), ADVENTURE,
+                      device=cuda)
+    T = launch_plan(eng.tables, eng.make_batch(1)).tile
+    batch = eng.make_batch(5 * T)
+    batch.regs[:2 * T, C_STATUS] = torch.tensor(
+        [PARKED, DONE] * T, dtype=torch.int32, device=cuda)
+    before = type(batch)(*(t.clone() for t in batch))
+    kern = held_to_plain(eng, batch, 16, 3, spread=False)
+    for a, b in zip(kern, before):
+        parked = a[:2 * T] if a.dim() == 2 else a[:, :2 * T]
+        was = b[:2 * T] if b.dim() == 2 else b[:, :2 * T]
+        assert torch.equal(parked, was)
+    assert bool((kern.regs[2 * T:, 2] > 0).all())
+
+
+def test_sharded_step_on_unequal_shards_equals_plain(cuda):
+    """Three shards of cuda:0 of unequal size, each with a ragged last
+    tile: the sharded step equals its plain version after every launch."""
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        launch_plan, sharded_turbo_step, sharded_turbo_step_reference)
+    from interpolation_engine_tpu_torch.parallel.mesh import (
+        shard_turbo_batch, unshard)
+    eng = TurboEngine(compile_src(bench.adventure_program()), ADVENTURE,
+                      mesh=[cuda] * 3)
+    T = launch_plan(eng.tables, eng.make_batch(3).shards[0]).tile
+    batch = eng.make_batch(3 * T + 4)     # shards of T + 2, T + 1, T + 1
+    sizes = [s.regs.shape[0] for s, _ in batch.parts()]
+    assert len(set(sizes)) > 1
+    plain = shard_turbo_batch(unshard(batch), eng.mesh)
+    for launch in range(4):
+        sharded_turbo_step(eng.step_tables, batch, 16)
+        sharded_turbo_step_reference(eng.step_tables, plain, 16)
+        torch.cuda.synchronize()
+        for a, b in zip(unshard(batch), unshard(plain)):
+            assert torch.equal(a, b), launch
+
+
+def test_kernel_attributes_show_no_stack_buffer(cuda):
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        kernel_attributes)
+    eng = TurboEngine(compile_src(tp.COPY_TYPES), TurboConfig(), device=cuda)
+    eng.step_fn(5)(eng.make_batch(5))
+    torch.cuda.synchronize()
+    attrs = kernel_attributes(cuda)
+    assert attrs["local_bytes"] < 512
+    assert attrs["max_dynamic_shared_bytes"] > 48 * 1024
+
+
+def test_launch_plan_is_made_once_for_the_cards_shared_memory(cuda):
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        H100_SHARED, launch_plan, shared_memory, tile_plan)
+    shared = shared_memory(cuda)
+    assert 48 * 1024 < shared.per_block <= shared.per_sm
+    if "H100" in torch.cuda.get_device_name(cuda):
+        assert shared == H100_SHARED
+    eng = TurboEngine(compile_src(bench.adventure_program()), ADVENTURE,
+                      device=cuda)
+    batch = eng.make_batch(7)
+    plan = launch_plan(eng.tables, batch)
+    assert plan == tile_plan(eng.tables, batch, shared=shared)
+    eng.step_fn(7)(batch)
+    assert launch_plan(eng.tables, batch) is plan
+    assert len(eng.tables.plans) == 1
+
+
 def test_kernel_counts_its_launches(cuda):
     eng = TurboEngine(compile_src(tp.COPY_TYPES), TurboConfig(), device=cuda)
     before = turbo_step.launches, turbo_step_reference.launches

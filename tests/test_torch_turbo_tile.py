@@ -1,0 +1,461 @@
+"""The step kernel's tile (``ops/turbo_step.py`` ``tile_plan``) and a
+rehearsal of the kernel itself on the CPU.
+
+The plan tests hold the layout to its rules: it fits a block's shared
+memory, every region starts 16-byte aligned, register and meta rows take an
+odd number of words, regions do not overlap, and a batch packed into the
+layout and unpacked again comes back unchanged.
+
+The rehearsal compiles ``csrc/turbo_step.cu`` with g++ under a small
+header that defines the CUDA qualifiers away and the one asynchronous copy
+as ``memcpy``, and runs the kernel's phases as the card would between its
+barriers: for each block, the entry check for every thread, then stage-in
+for every thread, then ``run``, then stage-out. Shared memory starts as
+garbage and a guard past its end must stay untouched. The result must equal
+``turbo_step_reference`` bit for bit after every launch.
+"""
+
+import ctypes
+import random
+import shutil
+import subprocess
+from dataclasses import astuple, fields
+from pathlib import Path
+
+import pytest
+import torch
+
+import bench
+import torch_programs as tp
+
+from interpolation_engine_tpu_torch.ops import turbo_step as ts
+from interpolation_engine_tpu_torch.vm.turbo import (
+    C_STATUS, DONE, PARKED, TurboConfig, TurboEngine)
+
+CSRC = Path(ts.__file__).resolve().parent.parent / "csrc"
+
+ADVENTURE = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
+                        elem_width=32)
+SHAPES = {
+    "adventure": (bench.adventure_program(), ADVENTURE),
+    "spine": (bench.BENCH_PROGRAM, TurboConfig(width=128, out_width=128,
+                                               k_steps=64)),
+    "adventure_w512": (bench.adventure_program(), TurboConfig(
+        width=512, out_width=512, k_steps=64, list_cap=12,
+        elem_width=128)),
+    "list_literal": ("{default_state: {order_index: 1, inserts: {l: ['a'], "
+                     "k: 7}}, order: [{cmd:'set', item:['x{l}', 'y', '{k}'],"
+                     " output_name:'l'}, {cmd:'print', text:'v={l}'}], "
+                     "named_tasks: {}, save_states: {}}", ADVENTURE),
+    "adventure_w80": (bench.adventure_program(), TurboConfig(
+        width=80, out_width=192, k_steps=8, list_cap=12, elem_width=32)),
+}
+# cards with less shared memory than the H100's (per SM, per block opt-in,
+# reserved per block), from NVIDIA's CUDA programming guide
+CARDS = {"sm80": ts.SharedMemory(167_936, 166_912, 1024),
+         "sm86": ts.SharedMemory(102_400, 101_376, 1024),
+         "sm75": ts.SharedMemory(65_536, 65_536, 0)}
+
+
+def compile_src(src):
+    from interpolation_engine_tpu_torch._shared import (
+        compile_program, json5, loader)
+    return compile_program(json5.loads(loader.add_line_numbers(src)))
+
+
+def engine(name):
+    src, tcfg = SHAPES[name]
+    return TurboEngine(compile_src(src), tcfg, device="cpu")
+
+
+def seeded(batch, seed=0):
+    """A batch of the same shapes filled with seeded random bytes."""
+    gen = torch.Generator().manual_seed(seed)
+    return type(batch)(*(torch.randint(
+        -128 if t.dtype == torch.int32 else 0, 127 if t.dtype == torch.int32
+        else 256, t.shape, generator=gen).to(t.dtype) for t in batch))
+
+
+# ---- the plan ----------------------------------------------------------------
+
+def regions(plan) -> dict:
+    """name -> (offset, bytes) of every region of the plan in use."""
+    t = plan.tile
+    spans = {"prog": (0, ts.PROG_BYTES),
+             "flat": (plan.flat_off, plan.flat_bytes),
+             "lits": (plan.lits_off, plan.lits_bytes),
+             "regs": (plan.regs_off, t * plan.regs_is),
+             "meta": (plan.meta_off, plan.planes * plan.meta_ps),
+             "sbuf": (plan.sbuf_off, plan.rows * plan.sbuf_ps),
+             "out": (plan.out_off, t * plan.out_is),
+             "scratch": (plan.scr_off, t * plan.scr_is),
+             "buf": (plan.buf_off, t * plan.buf_is)}
+    return {k: v for k, v in spans.items() if v[0] >= 0 and v[1] > 0}
+
+
+def fits(plan, shared):
+    """The plan's regions fit its shared bytes, and those a block."""
+    per_instance = sum(size for key, (_, size) in regions(plan).items()
+                       if key not in ("prog", "flat", "lits")) // plan.tile
+    tables = plan.flat_bytes + (plan.lits_bytes if plan.lits_off >= 0
+                                else 0)
+    assert 1 <= plan.tile <= 128
+    assert plan.tile * per_instance + tables + ts.PROG_BYTES <= plan.smem
+    assert plan.smem <= shared.per_block
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_tile_fits_a_block_with_the_tables(name):
+    eng = engine(name)
+    plan = ts.tile_plan(eng.tables, eng.make_batch(4))
+    shared = ts.H100_SHARED
+    fits(plan, shared)
+    # two blocks share an SM, with their reserved kilobyte each
+    assert 2 * (plan.smem + shared.reserved) <= shared.per_sm
+    if name == "list_literal":
+        assert eng.tables.host.scratch_bytes > 0 and plan.scr_is > 0
+    else:
+        assert plan.scr_is == 0
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_tile_fits_a_smaller_card(name):
+    """On a card with less shared memory the tile shrinks to fit it."""
+    eng = engine(name)
+    batch = eng.make_batch(4)
+    shared = CARDS["sm86"]
+    plan = ts.tile_plan(eng.tables, batch, shared=shared)
+    fits(plan, shared)
+    assert plan.tile < ts.tile_plan(eng.tables, batch).tile
+    if 2 * (plan.smem + shared.reserved) > shared.per_sm:
+        # one block an SM only when two tiles of one instance do not fit
+        half = shared.per_sm // 2 - shared.reserved
+        assert ts.tile_plan(eng.tables, batch, tile=1).smem > half
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_regions_are_aligned_padded_and_disjoint(name):
+    eng = engine(name)
+    plan = ts.tile_plan(eng.tables, eng.make_batch(4))
+    spans = sorted(regions(plan).values())
+    for off, size in spans:
+        assert off % 16 == 0
+    for (a, sa), (b, _) in zip(spans, spans[1:]):
+        assert a + sa <= b
+    assert spans[-1][0] + spans[-1][1] <= plan.smem
+    # every row of every instance an odd number of words apart
+    strides = [plan.regs_is, plan.meta_is, plan.sbuf_is, plan.out_is,
+               plan.buf_is] + ([plan.scr_is] if plan.scr_is else [])
+    for stride in strides:
+        assert stride % 4 == 0 and (stride // 4) % 2 == 1
+    assert plan.sbuf_ps % 4 == 0 and plan.meta_ps % 4 == 0
+    # one register column, meta cell or byte of 32 neighbouring instances:
+    # 32 distinct banks of four bytes
+    for off, stride in ((plan.regs_off, plan.regs_is),
+                        (plan.meta_off, plan.meta_is),
+                        (plan.sbuf_off + 3 * plan.sbuf_ps, plan.sbuf_is),
+                        (plan.buf_off, plan.buf_is)):
+        banks = {((off + t * stride + 21) // 4) % 32 for t in range(32)}
+        assert len(banks) == 32 or plan.tile < 32
+
+
+def test_plan_fields_are_the_kernels_tile_struct():
+    """The wrapper passes ``astuple(plan)``; the kernel reads it as its
+    ``Tile`` struct, whose fields are listed in this order."""
+    src = (CSRC / "turbo_step.cu").read_text()
+    body = src[src.index("struct Tile {"):]
+    body = body[:body.index("};")]
+    names = [w.strip(" ,;\n") for line in body.splitlines()[1:]
+             for w in line.replace("int ", "").split(",") if w.strip(" ;")]
+    assert names == [f.name for f in fields(ts.TilePlan)]
+    assert f"TILE_FIELDS = {len(names)};" in src
+
+
+def test_tile_caps_and_large_literals_stay_in_device_memory():
+    eng = engine("adventure")
+    batch = eng.make_batch(4)
+    assert ts.tile_plan(eng.tables, batch, tile=16).tile == 16
+    assert ts.tile_plan(eng.tables, batch, tile=10_000).tile <= ts.MAX_TILE
+    small = ts.tile_plan(eng.tables, batch, shared=CARDS["sm75"])
+    assert small.tile < ts.tile_plan(eng.tables, batch).tile
+    assert small.lits_off == -1        # an eighth of 32 KB is too little
+    big = ts.StepTables(host=eng.tables.host, flat=eng.tables.flat,
+                        lits=torch.zeros((200, 128), dtype=torch.uint8))
+    plan = ts.tile_plan(big, batch)
+    assert plan.lits_off == -1 and "lits" not in regions(plan)
+    assert ts.tile_plan(eng.tables, batch).lits_off > 0
+
+
+def test_one_instance_too_big_raises_naming_the_bytes():
+    eng = engine("spine")
+    batch = eng.make_batch(2)
+    wide = type(batch)(batch.regs, torch.zeros((460, 2, 512),
+                                               dtype=torch.uint8),
+                       batch.out, batch.meta)
+    with pytest.raises(ValueError, match=r"one instance needs \d+ bytes"):
+        ts.tile_plan(eng.tables, wide)
+    # the same rows fit one block alone when two do not share an SM
+    half = type(batch)(batch.regs, torch.zeros((300, 2, 512),
+                                               dtype=torch.uint8),
+                       batch.out, batch.meta)
+    assert ts.tile_plan(eng.tables, half).tile >= 1
+
+
+def pack(plan, batch, b):
+    """Tile b of batch in the plan's layout: the offsets ``stage_in``
+    uses, as a (smem,) uint8 tensor."""
+    sm = torch.zeros(plan.smem, dtype=torch.uint8)
+    for off, istride, pstride, rows in _views(plan, batch, b):
+        planes, cnt, ln = rows.shape
+        at = (off + torch.arange(planes)[:, None, None] * pstride
+              + torch.arange(cnt)[None, :, None] * istride
+              + torch.arange(ln)[None, None, :])
+        sm[at.reshape(-1)] = rows.reshape(-1)
+    return sm
+
+
+def unpack(plan, sm, batch, b):
+    """The reverse of ``pack``, into batch's rows of tile b."""
+    for off, istride, pstride, rows in _views(plan, batch, b):
+        planes, cnt, ln = rows.shape
+        at = (off + torch.arange(planes)[:, None, None] * pstride
+              + torch.arange(cnt)[None, :, None] * istride
+              + torch.arange(ln)[None, None, :])
+        rows.copy_(sm[at.reshape(-1)].reshape(rows.shape))
+
+
+def _views(plan, batch, b):
+    """(offset, instance stride, plane stride, the tile's rows as a
+    (planes, cnt, bytes) uint8 view) of each staged region."""
+    regs, sbuf, out, meta = batch
+    i0 = b * plan.tile
+    i1 = min(i0 + plan.tile, regs.shape[0])
+    return [(plan.regs_off, plan.regs_is, 0,
+             regs[i0:i1].view(torch.uint8)[None]),
+            (plan.meta_off, plan.meta_is, plan.meta_ps,
+             meta[:, i0:i1].view(torch.uint8)),
+            (plan.sbuf_off, plan.sbuf_is, plan.sbuf_ps, sbuf[:, i0:i1]),
+            (plan.out_off, plan.out_is, 0, out[i0:i1][None])]
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_pack_and_unpack_return_the_batch(name):
+    eng = engine(name)
+    plan = ts.tile_plan(eng.tables, eng.make_batch(1), tile=16)
+    n = 3 * plan.tile + 5           # a ragged last tile of 5
+    batch = seeded(eng.make_batch(n), seed=len(name))
+    back = type(batch)(*(torch.zeros_like(t) for t in batch))
+    for b in range(-(-n // plan.tile)):
+        unpack(plan, pack(plan, batch, b), back, b)
+    for got, want in zip(back, batch):
+        assert torch.equal(got, want)
+
+
+# ---- the rehearsal -----------------------------------------------------------
+
+HARNESS = r"""
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+#define __device__
+#define __forceinline__ inline
+template <class T> static inline T min(T a, T b) { return b < a ? b : a; }
+template <class T> static inline T max(T a, T b) { return a < b ? b : a; }
+struct uint4 { unsigned x, y, z, w; };
+static void copy_async(void* s, const void* g, int bytes) {
+  memcpy(s, g, bytes);
+}
+static void copy_async_wait() {}
+#include "turbo_step.cu"
+
+// The kernel's launch, block by block of MAX_TILE threads; in a block each
+// phase runs for every thread before the next one starts, as the kernel's
+// barriers order them.
+// 0: done; -1: arguments refused; -2: a block wrote past its shared memory.
+extern "C" int rehearse(const int* flat, const uint8_t* lits, int* regs,
+                        uint8_t* sbuf, uint8_t* out, int* meta, int n,
+                        int regw, int width, int out_width, int k_steps,
+                        const int* plan, int plan_len) {
+  if (n <= 0 || k_steps <= 0) return 0;
+  Args a;
+  if (!make_args(&a, flat, lits, regs, sbuf, out, meta, n, regw, width,
+                 out_width, k_steps, plan, plan_len))
+    return -1;
+  const int T = a.tl.tile, nt = MAX_TILE, guard = 64;
+  const int size = a.tl.smem + guard;
+  uint8_t* sm = (uint8_t*)aligned_alloc(16, (size + 15) / 16 * 16);
+  int rc = 0;
+  for (int b = 0; b * T < n && rc == 0; ++b) {
+    bool any = false;
+    for (int t = 0; t < nt; ++t) any = any || running_at_entry(a, b, t);
+    if (!any) continue;
+    memset(sm, 0xA5, size);
+    for (int t = 0; t < nt; ++t) stage_in(a, b, t, nt, sm);
+    for (int t = 0; t < nt; ++t) run(a, b, t, sm);
+    for (int t = 0; t < nt; ++t) stage_out(a, b, t, nt, sm);
+    for (int j = a.tl.smem; j < size; ++j)
+      if (sm[j] != 0xA5) rc = -2;
+  }
+  free(sm);
+  return rc;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def rehearsal(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    tmp = tmp_path_factory.mktemp("rehearsal")
+    (tmp / "harness.cpp").write_text(HARNESS)
+    so = tmp / "librehearsal.so"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                    "-fno-strict-aliasing", "-I", str(CSRC), "-o", str(so),
+                    str(tmp / "harness.cpp")], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rehearse.argtypes = [p] * 6 + [i] * 5 + [ctypes.POINTER(i), i]
+    lib.rehearse.restype = i
+    return lib
+
+
+def rehearse(lib, tables, batch, k, plan):
+    regs, sbuf, out, meta = batch
+    vals = astuple(plan)
+    rc = lib.rehearse(tables.flat.data_ptr(), tables.lits.data_ptr(),
+                      regs.data_ptr(), sbuf.data_ptr(), out.data_ptr(),
+                      meta.data_ptr(), regs.shape[0], regs.shape[1],
+                      sbuf.shape[2], out.shape[1], k,
+                      (ctypes.c_int * len(vals))(*vals), len(vals))
+    assert rc == 0
+
+
+def spread(eng, batch, seed=0):
+    """Give each instance its own loop counter, so lanes reach their
+    branches at other rounds."""
+    for key in ("i", "turn", "k2"):
+        slot = eng.plan.slot_of.get(key)
+        if slot is not None:
+            gen = torch.Generator().manual_seed(seed)
+            batch.regs[:, eng.cols.sint(slot)] = torch.randint(
+                0, 40, (batch.regs.shape[0],), generator=gen,
+                dtype=torch.int32)
+
+
+def hold(lib, eng, batch, k, launches, plan):
+    """The rehearsed kernel == the plain version after every launch."""
+    kern = type(batch)(*(t.clone() for t in batch))
+    for launch in range(launches):
+        rehearse(lib, eng.tables, kern, k, plan)
+        ts.turbo_step_reference(eng.tables, batch, k)
+        for name, a, b in zip(batch._fields, kern, batch):
+            assert torch.equal(a, b), (launch, name)
+    return kern
+
+
+PROGRAMS = dict(tp.AGREEING, **tp.LIST_AGREEING, spine=bench.BENCH_PROGRAM,
+                interp=bench.INTERP_PROGRAM,
+                ring=bench.RING_PROGRAM.replace("sel: 'spin'", "sel: 'park'"),
+                inexact=tp.INEXACT_DIV, await_not_ready=tp.AWAIT_NOT_READY,
+                adventure=bench.adventure_program(),
+                race_io=bench.race_io_program(),
+                midblock_race=tp.MIDBLOCK_PARK % {"mode": "race"},
+                parked_freeze_par=tp.PARKED_FREEZE_PAR,
+                spill_parallel=tp.SPILL_PARALLEL,
+                list_literal=SHAPES["list_literal"][0])
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_rehearsed_kernel_equals_plain(name, rehearsal):
+    eng = TurboEngine(compile_src(PROGRAMS[name]),
+                      TurboConfig(width=128, out_width=192, k_steps=8),
+                      device="cpu")
+    batch = eng.make_batch(37)
+    spread(eng, batch)
+    hold(rehearsal, eng, batch, 8, 4, ts.tile_plan(eng.tables, batch,
+                                                   tile=16))
+
+
+@pytest.mark.parametrize("n", ["1", "T-1", "T+1", "3T+5"])
+def test_rehearsed_ragged_tiles(n, rehearsal):
+    eng = engine("adventure")
+    plan = ts.tile_plan(eng.tables, eng.make_batch(1), tile=13)
+    T = plan.tile
+    rows = {"1": 1, "T-1": T - 1, "T+1": T + 1, "3T+5": 3 * T + 5}[n]
+    batch = eng.make_batch(rows)
+    spread(eng, batch, seed=rows)
+    hold(rehearsal, eng, batch, 16, 3, plan)
+
+
+@pytest.mark.parametrize("name", ["adventure_w512", "adventure_w80",
+                                  "list_literal", "spine"])
+def test_rehearsed_shapes(name, rehearsal):
+    """Width 512 (literals left in device memory), width 80 with 32-byte
+    elements (row tails unused), a list literal's scratch row, and the
+    default tile."""
+    eng = engine(name)
+    batch = eng.make_batch(50)
+    spread(eng, batch)
+    plan = ts.tile_plan(eng.tables, batch)
+    assert (plan.lits_off < 0) == (name == "adventure_w512")
+    hold(rehearsal, eng, batch, 16, 3, plan)
+
+
+@pytest.mark.parametrize("card", sorted(CARDS))
+def test_rehearsed_smaller_cards(card, rehearsal):
+    """The tiles of cards with less shared memory: fewer instances a block,
+    and on the smallest the literals left in device memory."""
+    eng = engine("adventure")
+    batch = eng.make_batch(40)
+    spread(eng, batch)
+    plan = ts.tile_plan(eng.tables, batch, shared=CARDS[card])
+    assert plan.tile < 40
+    hold(rehearsal, eng, batch, 16, 3, plan)
+
+
+def test_rehearsed_odd_widths_stage_bytes(rehearsal):
+    """Widths that are no multiple of 4 stage byte by byte."""
+    eng = TurboEngine(compile_src(bench.BENCH_PROGRAM), TurboConfig(
+        width=50, out_width=70, k_steps=8), device="cpu")
+    batch = eng.make_batch(30)
+    spread(eng, batch)
+    hold(rehearsal, eng, batch, 8, 3, ts.tile_plan(eng.tables, batch,
+                                                   tile=8))
+
+
+def test_rehearsed_parked_and_done_tiles_are_left_alone(rehearsal):
+    """The first tiles hold no RUNNING instance: the kernel skips them and
+    leaves every byte of them as it was."""
+    eng = engine("adventure")
+    plan = ts.tile_plan(eng.tables, eng.make_batch(1), tile=16)
+    batch = seeded(eng.make_batch(5 * 16), seed=3)
+    batch.regs[:, C_STATUS] = 0
+    batch.regs[:, 0] = 0                       # pc 0
+    batch.regs[:32, C_STATUS] = torch.tensor([PARKED, DONE] * 16,
+                                             dtype=torch.int32)
+    fresh = eng.make_batch(5 * 16)
+    for t, f in zip(batch, fresh):            # the running rows start clean
+        if t.dim() == 2:
+            t[32:] = f[32:]
+        else:
+            t[:, 32:] = f[:, 32:]
+    before = type(batch)(*(t.clone() for t in batch))
+    kern = hold(rehearsal, eng, batch, 8, 2, plan)
+    assert torch.equal(kern.regs[:32], before.regs[:32])
+    assert torch.equal(kern.sbuf[:, :32], before.sbuf[:, :32])
+
+
+@pytest.mark.parametrize("idx", range(12))
+def test_rehearsed_random_programs(idx, rehearsal):
+    from interpolation_engine_tpu_torch._shared import json5
+    program = (tp.random_scalar_program(random.Random(7000 + idx))
+               if idx < 6 else tp.random_program(random.Random(9000 + idx)))
+    eng = TurboEngine(compile_src(json5.dumps(program, indent=2)),
+                      TurboConfig(width=64, out_width=64, k_steps=2),
+                      device="cpu")
+    batch = eng.make_batch(24)
+    spread(eng, batch, seed=idx)
+    hold(rehearsal, eng, batch, 2, 8, ts.tile_plan(eng.tables, batch,
+                                                   tile=7))
