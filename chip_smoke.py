@@ -38,8 +38,15 @@ and prints no result):
    and every instance ends DONE with the host engine's output and inserts;
 7. the brace-scan kernel against its plain version: 1,048,576 seeded random
    rows over the bytes ``ab{}\\ `` at MS 96 and 512, every length from 0 to
-   MS, and curated edge rows; bit-identical, with the ms per call of both at
-   1,048,576 rows and at the bench's 131,072 x 96;
+   MS, and curated edge rows, then rows of MS 130 at bases 2 and 1 bytes
+   past a 16-byte boundary (``bufs[1:]`` and a copy one byte in); all
+   bit-identical; the kernel's tile (rows and shared bytes a block, blocks
+   an SM); then kernel and plain version timed queued at the bench's
+   131,072 x 96, warm (one input, in the L2 cache as on the main path) and
+   cold (eight copies cycled), at 1,048,576 x 96 and at 1,048,576 x 512,
+   each beside its bound; and its parts at 131,072 x 96 cold: every length
+   0 (the copy without the scan) and rows of no bytes (the launch, the
+   lengths and the results);
 8. the general engine at the bench's width (its second path): the
    adventure program, the bench's general VMConfig, 131,072 instances; two
    launches with every brace-scan call held against the plain version on
@@ -592,51 +599,122 @@ def scan_rows(n: int, ms: int, gen):
     return bufs.contiguous(), lengths.contiguous()
 
 
-def timed_calls(fn, calls: int = 5) -> float:
-    """ms per call of fn(), by CUDA events after one warm call."""
+def scan_bound(n: int, ms: int) -> dict:
+    """A scan call reads each row's bytes and length once and writes four
+    int32s a row; it compares each byte at least once."""
+    return bound(n * ms + 4 * n + 16 * n, n * ms)
+
+
+def time_scan(fn, inputs, calls: int) -> float:
+    """ms per call of fn over ``inputs`` taken in turn, queued (``timed``),
+    after one untimed pass over all of them. With one input it stays in
+    the L2 cache (warm); with copies that together outgrow the 50 MB L2,
+    each call finds its input in device memory (cold)."""
+    import itertools
     import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
+    for bufs, lengths in inputs:
+        fn(bufs, lengths)
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
+    turns = itertools.cycle(inputs)
+    return timed(lambda t: fn(*next(t)), turns, calls, True) / calls * 1e3
 
 
-def phase7(card: str) -> dict:
-    """The brace-scan kernel == its plain version, bit for bit."""
+def scan_times(card: str) -> dict:
+    """Kernel and plain version timed queued at 131,072 x 96 warm and cold,
+    1,048,576 x 96 and 1,048,576 x 512, each printed beside its bound;
+    returns the cold 131,072 x 96 times with their bound."""
     import torch
     from interpolation_engine_tpu_torch.ops.brace_scan import (
         brace_scan, brace_scan_reference)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    times = {}
+    main = scan_rows(131_072 - 2 * len(SCAN_EDGES), 96, gen)
+    cases = [("131,072 x 96 warm (one input, in L2 as on the main path)",
+              [main], 24, 8),
+             ("131,072 x 96 cold (8 copies cycled, 122 MB)",
+              [main] + [tuple(t.clone() for t in main) for _ in range(7)],
+              24, 8)]
     for ms in (96, 512):
-        bufs, lengths = scan_rows(1 << 20, ms, gen)
+        cases.append((f"1,048,576 x {ms}",
+                      [scan_rows((1 << 20) - 2 * len(SCAN_EDGES), ms, gen)],
+                      12 if ms == 96 else 6, 3))
+    times = {}
+    for label, inputs, k_calls, p_calls in cases:
+        n, ms = inputs[0][0].shape
+        k = time_scan(brace_scan, inputs, k_calls)
+        p = time_scan(brace_scan_reference, inputs, p_calls)
+        b = scan_bound(n, ms)
+        times[label] = (k, p, b)
+        log(f"phase 7 brace scan {label} [{card}]: kernel {k:.5f} ms/call, "
+            f"plain version {p:.4f} ms/call (queued); bound "
+            f"{b['bound_ms']:.5f} ms ({b['bound_by']}), the kernel at "
+            f"{b['bound_ms'] / k * 100:.1f} % of it")
+        del inputs
+    k, p, b = times[cases[1][0]]
+    if k < b["bound_ms"]:
+        raise AssertionError(f"phase 7: the cold time {k:.5f} ms is under "
+                             f"the bound {b['bound_ms']:.5f}: not cold")
+    return {"ms": k, "plain_ms": p, **b}
+
+
+def phase7(card: str) -> dict:
+    """The brace-scan kernel == its plain version, bit for bit, then its
+    tile and its queued times."""
+    import torch
+    from interpolation_engine_tpu_torch.ops.brace_scan import (
+        brace_scan, brace_scan_reference, kernel_plan)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def held(bufs, lengths, what):
         got = brace_scan(bufs, lengths)
         want = brace_scan_reference(bufs, lengths)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).any(dim=1).sum())
             raise AssertionError(f"phase 7: kernel and plain version differ "
-                                 f"on {bad} rows at MS {ms}")
-        for n in (bufs.shape[0], 131_072):
-            b, ln = bufs[:n].contiguous(), lengths[:n].contiguous()
-            times[(n, ms)] = (timed_calls(lambda: brace_scan(b, ln)),
-                              timed_calls(lambda: brace_scan_reference(b,
-                                                                       ln)))
+                                 f"on {bad} rows {what}")
+
+    for ms in (96, 512):
+        bufs, lengths = scan_rows(1 << 20, ms, gen)
+        held(bufs, lengths, f"at MS {ms}")
         log(f"phase 7 brace scan MS {ms} [{card}]: {bufs.shape[0]} rows "
-            f"bit-identical; kernel / plain ms per call: " + ", ".join(
-                f"{n} rows {k:.4f} / {p:.4f}"
-                for (n, m), (k, p) in times.items() if m == ms))
-        del bufs, lengths, got, want
-    # a call reads each row's bytes and length once and writes four int32s;
-    # it compares each byte at least once
-    n, ms = 131_072, 96
-    return {"ms": times[(n, ms)][0], "plain_ms": times[(n, ms)][1],
-            **bound(n * ms + 4 * n + 16 * n, n * ms)}
+            f"bit-identical")
+        del bufs, lengths
+    # rows whose base is not 16-byte aligned: bufs[1:] (130 bytes on) and a
+    # copy one byte into a buffer
+    bufs, lengths = scan_rows(65_536, 130, gen)
+    flat = torch.empty(bufs.numel() + 1, dtype=torch.uint8, device="cuda")
+    shifted = flat[1:].view(bufs.shape)
+    shifted.copy_(bufs)
+    for view, ln in ((bufs[1:], lengths[1:].contiguous()),
+                     (shifted, lengths)):
+        held(view, ln, f"at MS 130, base {view.data_ptr() % 16} bytes past "
+             f"a 16-byte boundary")
+    log(f"phase 7 brace scan MS 130 [{card}]: {bufs.shape[0]} rows at bases "
+        f"{bufs[1:].data_ptr() % 16} and {shifted.data_ptr() % 16} bytes "
+        f"past a 16-byte boundary bit-identical")
+    del bufs, lengths, flat, shifted
+    for ms in (96, 130, 512):
+        plan = kernel_plan(ms)
+        log(f"phase 7 brace scan tile at MS {ms}: {plan['rows']} rows a "
+            f"block, {plan['smem']} bytes of shared memory a block, "
+            f"{plan['blocks_per_sm']} blocks an SM")
+    line = scan_times(card)
+    # the kernel's parts at 131,072 x 96 cold: every length 0 copies the
+    # rows and scans nothing; rows of no bytes leave the launch, the
+    # lengths read and the results written
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = [scan_rows(131_072 - 2 * len(SCAN_EDGES), 96, gen)[0]
+            for _ in range(8)]
+    zeros = torch.zeros(131_072, dtype=torch.int32, device="cuda")
+    copy_ms = time_scan(brace_scan, [(b, zeros) for b in rows], 24)
+    del rows
+    empty = torch.empty((131_072, 0), dtype=torch.uint8, device="cuda")
+    frame_ms = time_scan(brace_scan, [(empty, zeros)], 24)
+    log(f"phase 7 brace scan parts at 131,072 x 96 cold [{card}]: every "
+        f"length 0 (the copy, no scan) {copy_ms:.5f} ms/call; 131,072 x 0 "
+        f"(launch, lengths and results only) {frame_ms:.5f} ms/call; the "
+        f"whole {line['ms']:.5f}")
+    return line
 
 
 GENERAL_CFG = dict(max_str=96, max_key=24, n_slots=12, arena_size=1024,
@@ -1093,7 +1171,7 @@ def main() -> int:
         phase4(tmp)
         main_path = phase5(card, tmp)
         race_io = phase6(card, tmp)
-        scan_times = phase7(card)
+        scan_line = phase7(card)
         general = phase8(card)
         phase9(card, tmp)
         phase10(tmp, tp.NOT_TURBO)
@@ -1104,7 +1182,7 @@ def main() -> int:
         dict(name="turbo_step_kernel", source=KERNEL_SRC,
              replaces=KERNEL_REPLACES, **main_path),
         dict(name="brace_scan_kernel", source=SCAN_SRC,
-             replaces=SCAN_REPLACES, **general, **scan_times),
+             replaces=SCAN_REPLACES, **general, **scan_line),
         dict(name="sharded_turbo_step", source=KERNEL_SRC,
              replaces=SHARDED_REPLACES, **sharded)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

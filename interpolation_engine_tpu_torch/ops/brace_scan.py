@@ -8,9 +8,10 @@ inner_to)`` that one step of the interpolation loop needs
 ``}`` strictly after it (or -1). A brace right after a backslash is hidden.
 
 On CUDA tensors it launches ``csrc/brace_scan.cu`` (built by
-``ops/build.py``) or raises; on CPU tensors, and only there, it runs
-``brace_scan_reference``, which works on any device so that it can be held
-against the kernel on the card. The two agree bit for bit. They replace the
+``ops/build.py``: one thread a row, a block's rows staged in shared memory,
+one pass of word-wide compares) or raises; on CPU tensors, and only there,
+it runs ``brace_scan_reference``, which works on any device so that it can
+be held against the kernel on the card. The two agree bit for bit. They replace the
 TPU kernel ``_scan_kernel`` of ``interpolation_engine_tpu/ops/pallas_scan.py``
 in both its per-string and its batched call.
 
@@ -22,6 +23,18 @@ from __future__ import annotations
 import torch
 
 from ..vm.bytestr import BACKSLASH, BRACE_CLOSE, BRACE_OPEN
+
+
+def kernel_plan(ms: int) -> dict:
+    """The kernel's tile for rows of ``ms`` bytes on the current card: rows
+    a block, shared bytes a block, and blocks the card keeps on one SM."""
+    import ctypes
+    from .build import load
+    out = (ctypes.c_int * 3)()
+    rc = load().brace_scan_plan(ms, out)
+    if rc != 0:
+        raise RuntimeError(f"brace_scan_plan failed: CUDA error {rc}")
+    return {"rows": out[0], "smem": out[1], "blocks_per_sm": out[2]}
 
 
 def _check(bufs: torch.Tensor, lengths: torch.Tensor) -> None:

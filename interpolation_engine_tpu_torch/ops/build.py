@@ -94,6 +94,8 @@ def load() -> ctypes.CDLL:
     lib.turbo_shared_memory.restype = i
     lib.brace_scan_launch.argtypes = [p] * 3 + [i] * 2 + [p]
     lib.brace_scan_launch.restype = i
+    lib.brace_scan_plan.argtypes = [i, ints]
+    lib.brace_scan_plan.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib

@@ -261,19 +261,34 @@ def test_kernel_counts_its_launches(cuda):
 # the brace-scan kernel (csrc/brace_scan.cu) and the general engine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,ms", [(1, 7), (1, 96), (33, 31), (257, 96),
-                                  (1000, 130), (4099, 512), (5, 0)])
-def test_brace_scan_kernel_equals_plain(n, ms, cuda):
+@pytest.mark.parametrize("n,ms,skip", [
+    (1, 7, 0), (1, 96, 0), (33, 31, 0), (257, 96, 0), (1000, 130, 0),
+    (4099, 512, 0), (5, 0, 0),
+    # a base 130 bytes on, not 16-byte aligned: bufs[1:]
+    (1001, 130, 1),
+    # ragged tiles of R rows
+    ("R-1", 96, 0), ("R+1", 96, 0), ("3R+5", 96, 0), ("3R+5", 130, 1),
+    ("3R+5", 600, 0),
+    (1 << 20, 512, 0)])
+def test_brace_scan_kernel_equals_plain(n, ms, skip, cuda):
     """Bit for bit on seeded rows over ``ab{}\\ `` with lengths in
-    [-3, MS + 5] (a length past MS counts as MS, a negative one as 0)."""
+    [-3, MS + 5] (a length past MS counts as MS, a negative one as 0); with
+    ``skip`` the rows are ``bufs[skip:]``, a contiguous view whose base lies
+    ``skip * MS`` bytes into the tensor."""
     import numpy as np
     from interpolation_engine_tpu_torch.ops.brace_scan import (
-        brace_scan, brace_scan_reference)
+        brace_scan, brace_scan_reference, kernel_plan)
+    R = kernel_plan(ms)["rows"]
+    n = {"R-1": R - 1, "R+1": R + 1, "3R+5": 3 * R + 5}.get(n, n)
     rng = np.random.default_rng(n * 1000 + ms)
     alphabet = np.frombuffer(b"ab{}\\ ", np.uint8)
-    bufs = torch.from_numpy(alphabet[rng.integers(0, 6, (n, ms))]).to(cuda)
+    bufs = torch.from_numpy(alphabet[rng.integers(0, 6, (n + skip, ms))]
+                            ).to(cuda)[skip:]
     lens = torch.from_numpy(rng.integers(-3, ms + 6, n).astype(
         np.int32)).to(cuda)
+    assert bufs.is_contiguous()
+    if skip and ms % 16:
+        assert bufs.data_ptr() % 16 != 0
     before = brace_scan.launches, brace_scan_reference.launches
     got = brace_scan(bufs, lens)
     want = brace_scan_reference(bufs, lens)
