@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``interpolation_engine_tpu_torch``) on one CUDA
 card and check it.
 
-    python3 chip_smoke.py      # phases 1-12 and the result lines
+    python3 chip_smoke.py      # phases 1-13 and the result lines
 
 Phases, each of which raises on any failure (the script then exits non-zero
 and prints no result):
@@ -11,16 +11,21 @@ and prints no result):
    adventure and race-io programs and a set of scalar, list and
    parallel-lane test programs, at 8,192 instances, the CUDA step kernel and
    ``turbo_step_reference`` run the same launches on the card and must leave
-   bit-identical regs, sbuf, out and meta after every launch; then the step
+   bit-identical regs, sbuf, out and meta after every launch; then the same
+   at the widths of promoted siblings: adventure at 2048 bytes, and rows of
+   a sibling as promotion builds them at 768 and 2048; then the step
    kernel's attributes (registers, local, static and dynamic shared bytes);
 2. the spine at the bench's size: 131,072 instances,
    ``TurboEngine.run_async`` to the end through the kernel; every instance
    DONE with the host engine's output; tasks/s of kernel and plain version
    over the same launches, and the kernel's bound;
 3. the ring: the bench's ring program with every instance parking three
-   times on a canned user_input, 16,384 instances (cut from 131,072 because
-   every park takes the exact per-row host path), outputs and inserts equal
-   to the host engine's;
+   times on a canned user_input, at the bench's 131,072 instances through
+   the ring's fast park path (no park through the exact ``_service``), then
+   at 16,384 with the fast path off (the exact ring, every park through
+   ``_service``); every instance's output and inserts equal to the host
+   engine's, the exact run equal to the fast one instance for instance and
+   in steps per instance, and both ring wall times;
 4. the CLI: ``--engine device --batch 256`` prints what the port's host CLI
    (``python -m interpolation_engine_tpu_torch.cli PROG``) prints, for the
    spine and for the adventure program;
@@ -32,10 +37,13 @@ and prints no result):
    instances (the skip path) beside a copy of the batch; then ``run_async`` to the end at 40 turns through the kernel,
    every instance DONE with the host engine's output and inserts, with the
    steps' share of the wall time;
-6. race-io through the lane servicing: every instance's race parks its
-   input lane once per turn, 3 turns, answered "cgo"; 16,384 instances
-   (cut from 131,072 as in phase 3); every park goes through the LaneRing,
-   and every instance ends DONE with the host engine's output and inserts;
+6. race-io: every instance's race parks its input lane once per turn, 3
+   turns, answered "cgo"; at the bench's 131,072 instances through the fast
+   park path (every park a fast park, none through the lane servicing
+   ``_service_lanes``), then at 16,384 with the fast path off (every park
+   through the LaneRing); every instance DONE with the host engine's output
+   and inserts and 47 steps, the two runs equal instance for instance, and
+   both ring wall times;
 7. the brace-scan kernel against its plain version: 1,048,576 seeded random
    rows over the bytes ``ab{}\\ `` at MS 96 and 512, every length from 0 to
    MS, and curated edge rows, then rows of MS 130 at bases 2 and 1 bytes
@@ -66,11 +74,22 @@ and prints no result):
    version on the same shards over two launches, with ms per step of each;
    then ``run_async`` through the sharded engine to DONE at 40 turns, and
    race-io at 3 turns, 4,096 instances (cut from 16,384 to keep the script
-   short), every instance equal to the host with 47 steps;
+   short), through the fast park path and then with it off (every park
+   gathered from its shard and serviced through ``_service_lanes``), every
+   instance equal to the host with 47 steps and the two runs equal;
 12. the bench's race-io shape: two sibling engines (``make_shard_engines``,
    ``assign_shard_ids``, ``run_pipelined``) on one card, 16,384 instances,
-   3 turns; every instance equal to the host, the summed steps equal to
-   phase 6's, and the ring wall time beside phase 6's.
+   3 turns, through the fast park path and then with it off (every park
+   through the shared LaneRing under its global id); every instance equal
+   to the host, the two runs equal, the summed steps equal to phase 6's
+   exact run at 16,384, and the ring wall times beside it;
+13. promotion: race-io at the bench's width-512 shape (width 512, elements
+   of 128 bytes, output 512), 16,384 instances, where one instance in 16
+   answers 1,000 bytes at turn 1: the fast path promotes those instances
+   mid-run into one sibling batch of width 2048, whose first kernel
+   launches are held bit for bit against the plain version; every instance
+   equal to the host with 47 steps; the sibling's tile and its ms per
+   launch (queued), beside the plain version's and its bound.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -137,19 +156,80 @@ def run_host(src: str, io, tmp: str) -> dict:
         return asyncio.run(runtime.async_main(path, [], io))
 
 
+_CANNED = {}
+
+
 def canned_io(answer: str = "ok"):
+    """An IO manager whose backend answers every user_input with ``answer``
+    at once (``sync_io``, as the bench's canned backends)."""
     from interpolation_engine_tpu_torch._shared import io_manager
+    cls = _CANNED.get(answer)
+    if cls is None:
+        class Canned(io_manager.BufferBackend):
+            sync_io = True
 
-    class Canned(io_manager.BufferBackend):
-        sync_io = True
+            def user_input_sync(self, prompt, default=""):
+                return answer
 
-        def user_input_sync(self, prompt, default=""):
-            return answer
+            async def user_input(self, prompt, default=""):
+                return answer
+        cls = _CANNED[answer] = Canned
+    return io_manager.IOManager(cls())
 
-        async def user_input(self, prompt, default=""):
-            return answer
 
-    return io_manager.IOManager(Canned())
+@contextlib.contextmanager
+def fast_ring(on: bool):
+    """``IE_TPU_FAST_RING`` for the engines made inside (each reads it when
+    it is made): off sends every park the exact way."""
+    old = os.environ.get("IE_TPU_FAST_RING")
+    os.environ["IE_TPU_FAST_RING"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["IE_TPU_FAST_RING"]
+        else:
+            os.environ["IE_TPU_FAST_RING"] = old
+
+
+def count_services(engines, counts: dict = None) -> dict:
+    """Count the parked rows the exact path services (``_service``) and,
+    of those, the ones the lane servicing takes (``_service_lanes``), over
+    the engines given."""
+    counts = counts or {"_service": 0, "_service_lanes": 0}
+    for eng in engines:
+        for name in ("_service", "_service_lanes"):
+            method = getattr(eng, name)
+
+            async def counted(*args, _method=method, _name=name):
+                counts[_name] += 1
+                return await _method(*args)
+            setattr(eng, name, counted)
+    return counts
+
+
+def ring_run(eng, n: int):
+    """``eng.run`` on n fresh instances to the end, timed to a synchronise
+    of every card, with ``count_services``. Returns (final batch, seconds,
+    exact services, lane services)."""
+    counts = count_services([eng])
+    batch = eng.make_batch(n)
+    sync_all()
+    t0 = time.perf_counter()
+    final = eng.run(batch)
+    sync_all()
+    return (final, time.perf_counter() - t0, counts["_service"],
+            counts["_service_lanes"])
+
+
+def summary(r) -> tuple:
+    return (r.output, r.inserts, r.status, r.steps)
+
+
+def fast_split(eng) -> str:
+    rs = eng.ring_stats
+    return (f"{rs['fast_parks']} of {rs['parks']} parks on the fast path, "
+            f"ring_ms {rs['ring_ms']:.1f}")
 
 
 def clone(batch):
@@ -257,17 +337,31 @@ def mesh_step_bound(tables, batch, row_steps, mesh, offsets,
 def phase1(progs: dict, n: int = 8192, launches: int = 4) -> int:
     """Kernel == plain version after every launch; returns the largest
     deviation seen (0 when bit-identical)."""
+    import bench
     import torch
+    import torch_programs as tp
     from interpolation_engine_tpu_torch.ops.turbo_step import (
         turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
         TurboConfig, TurboEngine)
     worst = 0
     gen = torch.Generator().manual_seed(SEED)
-    for name, (src, spread) in progs.items():
-        eng = TurboEngine(compile_src(src), TurboConfig(
-            width=128, out_width=192, k_steps=16), device="cuda")
-        b = eng.make_batch(n)
+    narrow = TurboConfig(width=128, out_width=192, k_steps=16)
+    cases = [(name, src, spread, narrow, None)
+             for name, (src, spread) in progs.items()]
+    # the widths of promoted siblings: the bench's width-512 cell 4x, and a
+    # sibling's rows as promotion builds them, values past the parent's slot
+    wide = TurboConfig(width=2048, out_width=2048, k_steps=16, list_cap=12,
+                       elem_width=512)
+    cases += [("adventure_w2048", bench.adventure_program(), ("turn", 600),
+               wide, None)]
+    for width, size in ((768, 600), (2048, 1800)):
+        cases.append((f"promoted_w{width}", tp.PROMOTED_PRINT, None,
+                      TurboConfig(width=width, out_width=width, k_steps=16),
+                      lambda eng, size=size: tp.promoted_batch(eng, size, n)))
+    for name, src, spread, tcfg, make in cases:
+        eng = TurboEngine(compile_src(src), tcfg, device="cuda")
+        b = make(eng) if make else eng.make_batch(n)
         if spread:
             spread_slot(eng, b, spread[0], spread[1], gen)
         kern, ref = clone(b), clone(b)
@@ -368,33 +462,51 @@ def phase2(card: str, tmp: str, n: int = 131_072) -> None:
         f"{elapsed:.3f} s = {total / elapsed:.1f} tasks/s end to end")
 
 
-def phase3(card: str, tmp: str, n: int = 16_384) -> None:
+def phase3(card: str, tmp: str, n: int = 131_072,
+           n_exact: int = 16_384) -> None:
+    """The ring program through the fast park path at the bench's size,
+    then through the exact ring."""
     import bench
-    import torch
     from interpolation_engine_tpu_torch.vm.turbo import (
-        C_STATUS, DONE, TurboConfig, TurboEngine)
+        C_STEPS, TurboConfig, TurboEngine)
     src = bench.RING_PROGRAM.replace("sel: 'spin'", "sel: 'park'") \
         .replace("'1073741824'", "'3'")
     host = run_host(src, canned_io(), tmp)
-    eng = TurboEngine(compile_src(src), TurboConfig(
-        width=128, out_width=192, k_steps=64), io_factory=lambda i:
-        canned_io(), device="cuda")
-    t0 = time.perf_counter()
-    final = eng.run(eng.make_batch(n))
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    if not bool((final.regs[:, C_STATUS] == DONE).all()):
-        raise AssertionError("phase 3: not every instance is DONE")
-    parks = eng.ring_stats["parks"]
-    if parks != 3 * n:
-        raise AssertionError(f"phase 3: {parks} parks, want {3 * n}")
     want = (host["output"], dict(host["inserts"]))
-    for i, r in enumerate(eng.results(final)):
-        if (r.output, r.inserts) != want:
-            raise AssertionError(f"phase 3: instance {i}: {r} != {want}")
-    log(f"phase 3 ring [{card}]: {n} instances, {parks} parks in "
-        f"{eng.ring_stats['rounds']} rounds, {elapsed:.3f} s, all DONE "
-        f"with {want[0]!r}")
+    runs = {}
+    for fast, size in ((True, n), (False, n_exact)):
+        with fast_ring(fast):
+            eng = TurboEngine(compile_src(src), TurboConfig(
+                width=128, out_width=192, k_steps=64), io_factory=lambda i:
+                canned_io(), device="cuda")
+        final, elapsed, exact, _ = ring_run(eng, size)
+        rs = eng.ring_stats
+        n_fast = 3 * size if fast else 0
+        if rs["parks"] != 3 * size or rs["fast_parks"] != n_fast or \
+                exact != 3 * size - n_fast:
+            raise AssertionError(f"phase 3: {rs['parks']} parks, "
+                                 f"{rs['fast_parks']} fast, {exact} exact; "
+                                 f"want {3 * size}, {n_fast}")
+        check_all_done("phase 3", eng, final, host)
+        res = eng.results(final)
+        for i, r in enumerate(res):
+            if (r.output, r.inserts) != want:
+                raise AssertionError(f"phase 3: instance {i}: {r} != {want}")
+        steps = int(final.regs[:, C_STEPS].long().sum())
+        runs[fast] = res, steps
+        path = "fast park path" if fast else "exact ring (fast path off)"
+        log(f"phase 3 ring, {path} [{card}]: {size} instances, "
+            f"{rs['parks']} parks in {rs['rounds']} rounds ({fast_split(eng)}"
+            f", {exact} through _service), ring wall time {elapsed:.3f} s, "
+            f"{steps} steps, all DONE with {want[0]!r}")
+    (fast_res, fast_steps), (exact_res, exact_steps) = runs[True], runs[False]
+    if [summary(r) for r in exact_res] != \
+            [summary(r) for r in fast_res[:n_exact]] or \
+            fast_steps * n_exact != exact_steps * n:
+        raise AssertionError("phase 3: the exact ring differs from the fast "
+                             "park path")
+    log(f"phase 3 ring: the exact run equals the fast run instance for "
+        f"instance, {exact_steps // n_exact} steps an instance in both")
 
 
 def phase4(tmp: str) -> None:
@@ -528,46 +640,50 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
             **launch_bound}
 
 
-def phase6(card: str, tmp: str, n: int = 16_384) -> dict:
-    """race-io: one lane park per instance per turn, through the
-    LaneRing."""
+def phase6(card: str, tmp: str, n: int = 131_072,
+           n_exact: int = 16_384) -> dict:
+    """race-io: one lane park per instance per turn, through the fast park
+    path at the bench's size, then through the LaneRing."""
     import bench
-    import torch
     from interpolation_engine_tpu_torch.vm.turbo import (
-        C_STEPS, TurboConfig, TurboEngine)
+        C_STEPS, DONE, TurboConfig, TurboEngine)
     src = bench.race_io_program(t_max=3)
     host = run_host(src, canned_io("cgo"), tmp)
-    eng = TurboEngine(compile_src(src), TurboConfig(
-        width=128, out_width=128, k_steps=16, list_cap=12, elem_width=32),
-        io_factory=lambda i: canned_io("cgo"), device="cuda")
-    lanes_serviced = 0
-    service = eng._service_lanes
-
-    async def counted(*args):
-        nonlocal lanes_serviced
-        lanes_serviced += 1
-        return await service(*args)
-
-    eng._service_lanes = counted
-    t0 = time.perf_counter()
-    final = eng.run(eng.make_batch(n))
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    parks = eng.ring_stats["parks"]
-    if parks != 3 * n or lanes_serviced != 3 * n:
-        raise AssertionError(f"phase 6: {parks} parks, {lanes_serviced} "
-                             f"through the lane servicing, want {3 * n}")
-    check_all_done("phase 6", eng, final, host)
-    want = (host["output"], dict(host["inserts"]))
-    for i, r in enumerate(eng.results(final)):
-        if (r.output, r.inserts) != want:
-            raise AssertionError(f"phase 6: instance {i}: {r} != {want}")
-    total = int(final.regs[:, C_STEPS].long().sum())
-    log(f"phase 6 race-io ring [{card}]: {n} instances, {parks} lane parks "
-        f"in {eng.ring_stats['rounds']} rounds, ring wall time "
-        f"{elapsed:.3f} s, {total} steps, all DONE with {want[0]!r}; "
-        f"{tile_line(eng.tables, final, eng.tcfg.tile)}")
-    return {"seconds": elapsed, "steps": total}
+    want = (host["output"], dict(host["inserts"]), DONE, 47)
+    runs = {}
+    for fast, size in ((True, n), (False, n_exact)):
+        with fast_ring(fast):
+            eng = TurboEngine(compile_src(src), TurboConfig(
+                width=128, out_width=128, k_steps=16, list_cap=12,
+                elem_width=32), io_factory=lambda i: canned_io("cgo"),
+                device="cuda")
+        final, elapsed, exact, lanes = ring_run(eng, size)
+        rs = eng.ring_stats
+        n_fast = 3 * size if fast else 0
+        if rs["parks"] != 3 * size or rs["fast_parks"] != n_fast or \
+                lanes != exact or lanes != 3 * size - n_fast:
+            raise AssertionError(
+                f"phase 6: {rs['parks']} parks, {rs['fast_parks']} fast, "
+                f"{lanes} through the lane servicing; want {3 * size} parks, "
+                f"{n_fast} fast")
+        check_all_done("phase 6", eng, final, host)
+        res = eng.results(final)
+        for i, r in enumerate(res):
+            if summary(r) != want:
+                raise AssertionError(f"phase 6: instance {i}: {r} != {want}")
+        steps = int(final.regs[:, C_STEPS].long().sum())
+        runs[fast] = {"seconds": elapsed, "steps": steps, "n": size}
+        path = "fast park path" if fast else "exact ring (fast path off)"
+        log(f"phase 6 race-io, {path} [{card}]: {size} instances, "
+            f"{rs['parks']} lane parks in {rs['rounds']} rounds "
+            f"({fast_split(eng)}, {lanes} through _service_lanes), ring "
+            f"wall time {elapsed:.3f} s, {steps} steps, all DONE with "
+            f"{want[0]!r} and 47 steps; "
+            f"{tile_line(eng.tables, final, eng.tcfg.tile)}")
+    log(f"phase 6 race-io: fast park path {runs[True]['seconds']:.3f} s at "
+        f"{n} instances against the exact ring's "
+        f"{runs[False]['seconds']:.3f} s at {n_exact}")
+    return runs[False]
 
 
 SCAN_EDGES = ["", "{", "}", "{a}", "\\{", "\\}", "a\\{", "{a\\}", "\\\\{",
@@ -951,7 +1067,7 @@ def phase11(card: str, tmp: str, n: int = 131_072,
     from interpolation_engine_tpu_torch.parallel.mesh import (
         make_mesh, shard_turbo_batch, unshard)
     from interpolation_engine_tpu_torch.vm.turbo import (
-        C_STEPS, TurboConfig, TurboEngine)
+        C_STEPS, DONE, TurboConfig, TurboEngine)
 
     if torch.cuda.device_count() >= 2:
         mesh, how = make_mesh(), "one shard on each card"
@@ -1045,28 +1161,48 @@ def phase11(card: str, tmp: str, n: int = 131_072,
         f"{eng.ring_stats['parks']} parks, {total} steps in {elapsed:.3f} s "
         f"= {total / elapsed:.1f} tasks/s end to end")
 
-    # race-io through the sharded ring
+    # race-io through the sharded ring: the fast park path, then the exact
+    # ring (every park gathered from its shard, serviced through the
+    # LaneRing under its global id and scattered back)
     src = bench.race_io_program(t_max=3)
     host = run_host(src, canned_io("cgo"), tmp)
-    eng = TurboEngine(compile_src(src), TurboConfig(
-        width=128, out_width=128, k_steps=16, list_cap=12, elem_width=32),
-        io_factory=lambda i: canned_io("cgo"), mesh=mesh)
-    t0 = time.perf_counter()
-    final = eng.run(eng.make_batch(n_ring))
-    sync_all()
-    ring_s = time.perf_counter() - t0
-    flat = unshard(final)
-    check_all_done("phase 11 race-io", eng, flat, host)
-    want = (host["output"], dict(host["inserts"]), 47)
-    for i, r in enumerate(eng.results(final)):
-        if (r.output, r.inserts, r.steps) != want:
-            raise AssertionError(f"phase 11 race-io: instance {i}: {r} != "
-                                 f"{want}")
-    log(f"phase 11 race-io over the mesh [{card}]: {n_ring} instances (cut "
-        f"from 16,384 to keep the script short), "
-        f"{eng.ring_stats['parks']} lane parks in "
-        f"{eng.ring_stats['rounds']} rounds, {ring_s:.3f} s, all DONE "
-        f"with the host's output and 47 steps each")
+    want = (host["output"], dict(host["inserts"]), DONE, 47)
+    runs = {}
+    for fast in (True, False):
+        with fast_ring(fast):
+            eng = TurboEngine(compile_src(src), TurboConfig(
+                width=128, out_width=128, k_steps=16, list_cap=12,
+                elem_width=32), io_factory=lambda i: canned_io("cgo"),
+                mesh=mesh)
+        final, ring_s, exact, lanes = ring_run(eng, n_ring)
+        flat = unshard(final)
+        check_all_done("phase 11 race-io", eng, flat, host)
+        res = [summary(r) for r in eng.results(final)]
+        for i, r in enumerate(res):
+            if r != want:
+                raise AssertionError(f"phase 11 race-io: instance {i}: {r} "
+                                     f"!= {want}")
+        rs = eng.ring_stats
+        n_fast = 3 * n_ring if fast else 0
+        if rs["parks"] != 3 * n_ring or rs["fast_parks"] != n_fast or \
+                lanes != exact or lanes != 3 * n_ring - n_fast:
+            raise AssertionError(
+                f"phase 11 race-io: {rs['parks']} parks, {rs['fast_parks']} "
+                f"fast, {lanes} through the lane servicing; want "
+                f"{3 * n_ring} parks, {n_fast} fast")
+        runs[fast] = res, int(flat.regs[:, C_STEPS].long().sum())
+        path = "fast park path" if fast else "exact ring (fast path off)"
+        log(f"phase 11 race-io over the mesh, {path} [{card}]: {n_ring} "
+            f"instances (cut from 16,384 to keep the script short), "
+            f"{rs['parks']} lane parks in {rs['rounds']} rounds "
+            f"({fast_split(eng)}, {lanes} through _service_lanes), "
+            f"{ring_s:.3f} s, all DONE with the host's output and 47 steps "
+            f"each")
+    if runs[True] != runs[False]:
+        raise AssertionError("phase 11 race-io: the exact ring differs from "
+                             "the fast park path")
+    log(f"phase 11 race-io over the mesh: the exact run equals the fast run "
+        f"instance for instance, {runs[True][1]} steps in both")
     return {"launches": launches, "max_abs_err": worst,
             "ms": t_many / L * 1e3, "plain_ms": t_plain / L * 1e3,
             **launch_bound}
@@ -1074,42 +1210,163 @@ def phase11(card: str, tmp: str, n: int = 131_072,
 
 def phase12(card: str, tmp: str, single: dict, n: int = 16_384) -> None:
     """The bench's race-io shape: two sibling engines pipelined on one
-    card."""
+    card, through the fast park path and then through the exact ring."""
     import bench
     from interpolation_engine_tpu_torch.vm.turbo import (
         C_STEPS, TurboConfig, assign_shard_ids, make_shard_engines,
         run_pipelined)
     src = bench.race_io_program(t_max=3)
     host = run_host(src, canned_io("cgo"), tmp)
-    engines = make_shard_engines(
-        compile_src(src), TurboConfig(width=128, out_width=128, k_steps=16,
-                                      list_cap=12, elem_width=32), 2,
-        io_factory=lambda i: canned_io("cgo"), device="cuda")
-    assign_shard_ids(engines, n // 2)
-    pairs = [(e, e.make_batch(n // 2)) for e in engines]
-    sync_all()
-    t0 = time.perf_counter()
-    finals = asyncio.run(run_pipelined(pairs))
-    sync_all()
-    elapsed = time.perf_counter() - t0
     want = (host["output"], dict(host["inserts"]))
-    total = parks = 0
-    for s, (eng, final) in enumerate(zip(engines, finals)):
-        check_all_done(f"phase 12 shard {s}", eng, final, host)
-        for i, r in enumerate(eng.results(final)):
-            if (r.output, r.inserts) != want:
-                raise AssertionError(f"phase 12 shard {s}: instance {i}: "
-                                     f"{r} != {want}")
-        total += int(final.regs[:, C_STEPS].long().sum())
-        parks += eng.ring_stats["parks"]
-    if total != single["steps"] or parks != 3 * n:
-        raise AssertionError(f"phase 12: {total} steps and {parks} parks, "
-                             f"want phase 6's {single['steps']} and {3 * n}")
-    log(f"phase 12 race-io, 2 pipelined shard engines on one card [{card}]: "
-        f"{n} instances DONE with the host's output and inserts, {total} "
-        f"steps (= phase 6), {parks} lane parks; ring wall time "
-        f"{elapsed:.3f} s against phase 6's single engine "
-        f"{single['seconds']:.3f} s")
+    runs = {}
+    for fast in (True, False):
+        with fast_ring(fast):
+            engines = make_shard_engines(
+                compile_src(src), TurboConfig(
+                    width=128, out_width=128, k_steps=16, list_cap=12,
+                    elem_width=32), 2,
+                io_factory=lambda i: canned_io("cgo"), device="cuda")
+        assign_shard_ids(engines, n // 2)
+        counts = count_services(engines)
+        pairs = [(e, e.make_batch(n // 2)) for e in engines]
+        sync_all()
+        t0 = time.perf_counter()
+        finals = asyncio.run(run_pipelined(pairs))
+        sync_all()
+        elapsed = time.perf_counter() - t0
+        total = parks = n_fast = 0
+        res = []
+        for s, (eng, final) in enumerate(zip(engines, finals)):
+            check_all_done(f"phase 12 shard {s}", eng, final, host)
+            for i, r in enumerate(eng.results(final)):
+                if (r.output, r.inserts) != want:
+                    raise AssertionError(f"phase 12 shard {s}: instance {i}: "
+                                         f"{r} != {want}")
+                res.append(summary(r))
+            total += int(final.regs[:, C_STEPS].long().sum())
+            parks += eng.ring_stats["parks"]
+            n_fast += eng.ring_stats["fast_parks"]
+        lanes = counts["_service_lanes"]
+        want_fast = parks if fast else 0
+        if total != single["steps"] or parks != 3 * n or \
+                n_fast != want_fast or lanes != counts["_service"] or \
+                lanes != parks - n_fast or single["n"] != n:
+            raise AssertionError(
+                f"phase 12: {total} steps, {parks} parks, {n_fast} fast, "
+                f"{lanes} through the lane servicing; want phase 6's "
+                f"{single['steps']} steps at {single['n']}, {3 * n} parks, "
+                f"{want_fast} fast")
+        runs[fast] = res
+        path = "fast park path" if fast else "exact ring (fast path off)"
+        log(f"phase 12 race-io, 2 pipelined shard engines on one card, "
+            f"{path} [{card}]: {n} instances DONE with the host's output "
+            f"and inserts, {total} steps (= phase 6's exact ring at {n}), "
+            f"{parks} lane parks, {n_fast} on the fast path, {lanes} through "
+            f"_service_lanes; ring wall time {elapsed:.3f} s against phase "
+            f"6's exact ring's {single['seconds']:.3f} s")
+    if runs[True] != runs[False]:
+        raise AssertionError("phase 12: the exact ring differs from the fast "
+                             "park path")
+    log("phase 12 race-io: the exact run equals the fast run instance for "
+        "instance")
+
+
+def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
+            checked: int = 2) -> None:
+    """Promotion mid-run at the bench's width-512 shape: the sibling's first
+    ``checked`` kernel launches held against the plain version, then its
+    launch timed."""
+    import bench
+    import torch
+    from interpolation_engine_tpu_torch._shared import io_manager as iom
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        turbo_step, turbo_step_reference)
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        C_STEPS, DONE, TurboConfig, TurboEngine)
+    src = bench.race_io_program(t_max=3)
+    # the long answer still starts with 'c', so the instance plays on
+    answers = {False: ["cgo"] * 3, True: ["c" + "L" * 999, "cgo", "cgo"]}
+    want = {}
+    for big, said in answers.items():
+        host = run_host(src, iom.IOManager(iom.ScriptedBackend(list(said))),
+                        tmp)
+        want[big] = (host["output"], dict(host["inserts"]), DONE, 47)
+    tcfg = TurboConfig(width=512, out_width=512, k_steps=16, list_cap=12,
+                       elem_width=128)
+    eng = TurboEngine(compile_src(src), tcfg, io_factory=lambda i:
+                      iom.IOManager(iom.ScriptedBackend(
+                          list(answers[i % every == 0]))), device="cuda")
+    # the sibling's steps: the first ``checked`` held against the plain
+    # version on a copy of the same batch
+    sib = {"held": 0, "worst": 0, "first": None, "tables": None}
+    make = TurboEngine.step_fn
+
+    def step_fn(self, rows):
+        step = make(self, rows)
+        if self.tcfg.width == tcfg.width:
+            return step
+
+        def held(batch):
+            if sib["held"] >= checked:
+                return step(batch)
+            ref = clone(batch)
+            if sib["first"] is None:
+                sib["first"], sib["tables"] = clone(batch), self.tables
+                sib["tcfg"] = self.tcfg
+            step(batch)
+            turbo_step_reference(self.tables, ref, self.tcfg.k_steps)
+            torch.cuda.synchronize()
+            diff = max_abs_diff(batch, ref)
+            sib["worst"] = max(sib["worst"], diff)
+            sib["held"] += 1
+            if diff:
+                raise AssertionError(f"phase 13: the sibling's kernel and "
+                                     f"plain version differ after launch "
+                                     f"{sib['held']}")
+            return batch
+        return held
+
+    turbo_step.launches = turbo_step_reference.launches = 0
+    TurboEngine.step_fn = step_fn
+    try:
+        final, elapsed, exact, _ = ring_run(eng, n)
+    finally:
+        TurboEngine.step_fn = make
+    promoted = list(range(0, n, every))
+    if sorted(eng._escape_results) != promoted or exact != 0 or \
+            sib["held"] != checked or \
+            turbo_step_reference.launches != checked:
+        raise AssertionError(
+            f"phase 13: {len(eng._escape_results)} instances promoted, "
+            f"{exact} exact services, {sib['held']} sibling launches held, "
+            f"{turbo_step_reference.launches} plain launches")
+    res = eng.results(final)
+    for i, r in enumerate(res):
+        if summary(r) != want[i % every == 0]:
+            raise AssertionError(f"phase 13: instance {i}: {r} != "
+                                 f"{want[i % every == 0]}")
+    wide, tables, first = sib["tcfg"], sib["tables"], sib["first"]
+    K, L = wide.k_steps, 4
+    kern = clone(first)
+    k_ms = timed(lambda b: turbo_step(tables, b, K), kern, L, True) / L * 1e3
+    p_ms = timed(lambda b: turbo_step_reference(tables, b, K), clone(first),
+                 L) / L * 1e3
+    steps = int((kern.regs[:, C_STEPS] - first.regs[:, C_STEPS]).sum())
+    sib_bound = step_bound(tables, first, steps // L)
+    log(f"phase 13 promotion [{card}]: race-io at width {tcfg.width}, "
+        f"{n} instances, every {every}th answering 1,000 bytes at turn 1: "
+        f"{len(promoted)} promoted mid-run to one sibling of width "
+        f"{wide.width} (out {wide.out_width}, elements {wide.elem_width}), "
+        f"{eng.ring_stats['escapes']} queued; its first {checked} kernel "
+        f"launches bit-identical to the plain version; every instance DONE "
+        f"equal to the host with 47 steps; {fast_split(eng)}, no exact "
+        f"service; {turbo_step.launches} kernel launches in {elapsed:.3f} s")
+    log(f"phase 13 sibling step at width {wide.width}, {len(promoted)} "
+        f"instances, first launch's state, K={K} [{card}]: kernel "
+        f"{k_ms:.3f} ms/launch (queued), plain version {p_ms:.3f} ms/launch; "
+        f"bound {sib_bound['bound_ms']:.4f} ms ({sib_bound['bound_by']}), "
+        f"the kernel at {sib_bound['bound_ms'] / k_ms * 100:.1f} % of it; "
+        f"{tile_line(tables, first, wide.tile)}")
 
 
 def programs() -> dict:
@@ -1177,6 +1434,7 @@ def main() -> int:
         phase10(tmp, tp.NOT_TURBO)
         sharded = phase11(card, tmp)
         phase12(card, tmp, race_io)
+        phase13(card, tmp)
     main_path["max_abs_err"] = max(worst, main_path["max_abs_err"])
     kernels = [
         dict(name="turbo_step_kernel", source=KERNEL_SRC,

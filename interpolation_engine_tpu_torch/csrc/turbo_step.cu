@@ -77,7 +77,7 @@ constexpr int T_EMPTY = 0, T_INT = 1, T_STR = 2, T_LIST = 3;
 constexpr int T_FREE = 0, T_NEW = 1, T_READY = 2, T_WAIT = 3, T_DONE = 4;
 constexpr int PM_NONE = 0, PM_WAIT = 1, PM_DRAIN = 3;
 
-constexpr int MAX_W = 512;       // widest slot
+constexpr int MAX_W = 2048;      // widest slot: the sibling of a 512-wide batch
 constexpr int MAX_TILE = 256;    // ops/turbo_step.py MAX_TILE; threads a block
 constexpr int PROG_BYTES = 256;  // ops/turbo_step.py PROG_BYTES
 constexpr int MAX_STACK = 16;    // vm/turbo_tables.py RPN_MAX_STACK

@@ -50,7 +50,7 @@ C_CURTID, C_PARMODE, C_PARJOIN, C_PAREPOCH, C_CLREPOCH, C_BASE = \
 # thread-lane states and block modes (the JAX package's vm/config.py)
 T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = 0, 1, 2, 3, 4
 PM_NONE, PM_WAIT, PM_DRAIN = 0, 1, 3
-MAX_WIDTH = 512          # csrc/turbo_step.cu MAX_W
+MAX_WIDTH = 2048         # csrc/turbo_step.cu MAX_W
 MAX_TILE = 256           # csrc/turbo_step.cu MAX_TILE: threads per block
 PROG_BYTES = 256         # csrc/turbo_step.cu PROG_BYTES: the parsed program
 ROW_PAD = 4              # bytes past a byte row's 16-byte round-up

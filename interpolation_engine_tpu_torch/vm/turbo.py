@@ -31,10 +31,19 @@ its index so every other row keeps the JAX row numbering. The step
 updates these tensors in place.
 
 Every plan that ``plan_turbo`` accepts runs, parallel thread lanes and
-lists included. A value that outgrows its slot raises ``NotPorted``
-(promotion to a wider sibling batch is not here yet). The ring is the JAX
-package's exact slow path, with lane servicing for instances parked inside
-a parallel block; its vectorized fast park path is not here yet.
+lists included. The ring is the JAX package's: its vectorized fast park
+path first (a literal-prompt user_input on a backend that answers at once,
+and a drained race whose one waiting lane is cancelled, resumed by batched
+torch writes on the device), then the exact slow path for the rest, with
+lane servicing for instances parked inside a parallel block. A value that
+outgrows its slot moves the instance into one sibling batch
+``promote_factor`` times wider, run concurrently with this one. An
+instance that even the sibling cannot hold would escape to the general
+engine in the JAX package; here that raises ``NotPorted``.
+
+Step counts: the JAX fast path resumes a drained race at its join without
+the lane's thread end, one step fewer than its exact ring. Here both paths
+count as the exact ring does, and leave every register as it leaves them.
 
 Over several devices (``mesh=``, ``parallel/mesh.py``) the batch is a
 ``ShardedTurboBatch`` and the step launches the kernel per shard
@@ -48,23 +57,29 @@ launch.
 
 from __future__ import annotations
 
+import asyncio
+import os
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .._shared import (context, events, executor, io_manager, planner,
+from .._shared import (context, events, executor, io_manager, isa, planner,
                        vm_config)
 from .._shared import lanering as lanering_mod
-from ..ops.turbo_step import StepTables, sharded_turbo_step, turbo_step
+from ..ops.turbo_step import (MAX_WIDTH, StepTables, sharded_turbo_step,
+                              turbo_step)
 from ..parallel.mesh import ShardedTurboBatch, make_mesh, shard_turbo_batch
 from .state import T_INT, T_LIST, T_STR
 from .turbo_tables import NotPorted, build_tables
 
 NotTurbo = planner.NotTurbo
 DONE, PARKED, RUNNING = vm_config.DONE, vm_config.PARKED, vm_config.RUNNING
-PM_NONE, T_FREE = vm_config.PM_NONE, vm_config.T_FREE
+PM_NONE, PM_DRAIN = vm_config.PM_NONE, vm_config.PM_DRAIN
+T_FREE, T_READY, T_WAIT, T_DONE = (vm_config.T_FREE, vm_config.T_READY,
+                                   vm_config.T_WAIT, vm_config.T_DONE)
 
 # fixed control columns; everything after is computed by _Cols
 C_PC, C_STATUS, C_STEPS, C_OUTLEN = 0, 1, 2, 3
@@ -344,14 +359,51 @@ class InstanceResult:
     error: Optional[str] = None
 
 
+_MISS = object()
+
+
+def _drive_sync(fn):
+    """Wrap an async backend method declared ``sync_io`` into a plain call
+    (the JAX package's ``_drive_sync``, ``vm/turbo.py:2036``): drive the
+    coroutine one slice; completing within it is the declared contract, and
+    a suspension violates it."""
+    def call(prompt, default=""):
+        coro = fn(prompt, default)
+        try:
+            coro.send(None)
+        except StopIteration as si:
+            return si.value
+        coro.close()
+        raise RuntimeError(
+            "backend declares sync_io=True but user_input suspended")
+    return call
+
+
+def _column_writer(regs: torch.Tensor, mask):
+    """``put(c, v)``: register column c := v on the rows of the bool
+    ``mask`` (every row when it is None), in place; v is a scalar or one
+    value per row."""
+    def put(c: int, v) -> None:
+        v = torch.as_tensor(v, dtype=torch.int32, device=regs.device)
+        if mask is None:
+            regs[:, c] = v
+        else:
+            regs[:, c] = torch.where(mask, v, regs[:, c])
+    return put
+
+
 class TurboEngine:
     """Run one turbo-planned program over a batch of instances on
     ``device``: CUDA tensors go through the hand-written step kernel, CPU
     tensors through its plain PyTorch version.
 
-    The ring is the JAX package's exact slow path: one gather of all parked
-    rows per round, exact host service per row (through the shared LaneRing
-    for a row parked inside a parallel block), one scatter back.
+    The ring is the JAX package's: each round the vectorized fast path
+    services what it can (``_classify_parked``, ``_fast_service``,
+    ``_fast_cancel``: one small column download, the backend calls, device
+    writes), and the exact slow path the rest: one gather of those parked
+    rows, exact host service per row (through the shared LaneRing for a row
+    parked inside a parallel block), one scatter back. ``IE_TPU_FAST_RING=0``
+    sends every park through the exact path.
 
     Known decode-order divergence (as in the JAX package): decoded insert
     dicts list keys in static slot order, not dynamic first-write order.
@@ -362,11 +414,15 @@ class TurboEngine:
     let sibling engines share one plan, one LaneRing and one copy of the
     device tables; ``instance_ids`` maps this engine's rows to the
     LaneRing's global instance ids (the row itself by default).
+    ``promote_factor`` is how much wider (width, out_width, elem_width) the
+    sibling batch is that takes instances outgrowing their slots; 0 turns
+    promotion off, as in that sibling itself.
     """
 
     def __init__(self, compiled, tcfg: TurboConfig = None, io_factory=None,
                  *, device=None, mesh=None, plan=None, lanering=None,
-                 instance_ids=None, step_tables=None):
+                 instance_ids=None, step_tables=None,
+                 promote_factor: int = 4):
         if (device is None) == (mesh is None):
             raise TypeError("TurboEngine takes exactly one of device= and "
                             "mesh=")
@@ -400,8 +456,29 @@ class TurboEngine:
         # row's output outgrows the device buffer the ring drains it here;
         # a stale epoch (an in-kernel `clear` ran since) voids the prefix.
         self._out_prefix: dict = {}
-        self.ring_stats = {"rounds": 0, "parks": 0, "parks_by_kind": {}}
+        # fast_parks: parks the vectorized fast path serviced; escapes:
+        # instances queued for a promotion (or an escape)
+        self.ring_stats = {"rounds": 0, "parks": 0, "escapes": 0,
+                           "fast_parks": 0, "parks_by_kind": {},
+                           "ring_ms": 0.0}
         self._n_live = 0
+        # promotion: instance → record (_queue_promotion); the sibling's
+        # results of migrated instances; the sibling runs in flight; every
+        # row that left this batch (its lane IO is the sibling's now)
+        self.promote_factor = promote_factor
+        self._promote_states: dict = {}
+        self._escape_states: dict = {}
+        self._escape_results: dict = {}
+        self._promo_tasks: list = []
+        self._migrated: set = set()
+        self._wide_tables = None    # the siblings' StepTables, built once
+        # the vectorized fast park path (read as the JAX package reads it)
+        self._fast_enabled = os.environ.get("IE_TPU_FAST_RING", "1") != "0"
+        self._fast_tables = None
+        self._fast_call: dict = {}   # row → bound sync call | None
+        self._fast_call_ok = None    # (n,) int8: 1 sync, -1 no, 0 unknown
+        self._cancel_ok = None       # (n,) int8: empty_choice_pure probe
+        self._meta_idx: dict = {}    # device → _meta_cols as a tensor
 
     # ---- batch lifecycle ---------------------------------------------------
 
@@ -425,7 +502,7 @@ class TurboEngine:
             return torch.from_numpy(a).to(dev).expand(shape).contiguous()
 
         self._n_live = n
-        self._out_prefix.clear()
+        self._reset_run_state()
         batch = TurboBatch(
             regs=bcast(row["regs"][None], (n, self.cols.regw)),
             sbuf=bcast(row["sbuf"][:, None, :],
@@ -436,6 +513,13 @@ class TurboEngine:
         if self.mesh is None:
             return batch
         return shard_turbo_batch(batch, self.mesh)
+
+    def _reset_run_state(self) -> None:
+        self._out_prefix.clear()
+        self._promote_states.clear()
+        self._escape_states.clear()
+        self._escape_results.clear()
+        self._migrated.clear()
 
     def _encode_slot(self, regs: np.ndarray, sbuf: np.ndarray,
                      meta: np.ndarray, key, value) -> None:
@@ -643,10 +727,531 @@ class TurboEngine:
             self.compiled.program.get("completion_args", {}),
             self.compiled.program.get("named_tasks", {})))
 
+    # ---- the vectorized fast park path ---------------------------------------
+
+    def _build_fast_tables(self):
+        """Static per-pc fast-service eligibility, on the host (the JAX
+        package's ``_build_fast_tables``, ``vm/turbo.py:2611``):
+        ``fast_top[pc]``, a user_input park with a literal prompt and a
+        literal output name whose slot has a string row; ``fast_drain[pc]``,
+        such a park that is also its lane's last task (the next row is
+        OP_THREAD_END), so a drained race completes right after it;
+        ``cancel_any[pc]``, a literal await_insert, and ``cancel_pure[pc]``,
+        an empty user_choice (on a backend that declares
+        ``empty_choice_pure``), where the LaneRing cancels a drained race's
+        one waiting lane with no state write (a lane parks at an await only
+        while its key is missing, so the cancel always lands). ``sites``
+        maps each fast pc to (prompt, out slot)."""
+        if self._fast_tables is not None:
+            return self._fast_tables
+        P = self.plan.n_instr
+        fast_top = np.zeros((P,), bool)
+        fast_drain = np.zeros((P,), bool)
+        cancel_any = np.zeros((P,), bool)
+        cancel_pure = np.zeros((P,), bool)
+        sites: dict = {}
+        code = self.compiled.code
+
+        def literal(s) -> bool:
+            return isinstance(s, str) and not any(c in s for c in "{}\\")
+        for pc, kind in self.plan.park_kind_of.items():
+            task = self.compiled.source_tasks[pc]
+            if kind == vm_config.PARK_AWAIT_INSERT:
+                if literal(task.get("name") if task else None):
+                    cancel_any[pc] = True
+                continue
+            if kind == vm_config.PARK_USER_CHOICE and task and \
+                    task.get("cmd") == "user_choice" and \
+                    task.get("list") == []:
+                cancel_pure[pc] = True
+                continue
+            if kind != vm_config.PARK_USER_INPUT or not task or \
+                    task.get("cmd") != "user_input":
+                continue
+            name, prompt = task.get("output_name"), task.get("prompt")
+            if not (literal(name) and literal(prompt)):
+                continue
+            out_slot = self.plan.slot_of.get(name)
+            if out_slot is None or out_slot not in self.cols.str_row:
+                continue
+            sites[pc] = (prompt, out_slot)
+            fast_top[pc] = True
+            if pc + 1 < len(code) and \
+                    int(code[pc + 1][0]) == isa.OP_THREAD_END:
+                fast_drain[pc] = True
+        self._fast_tables = (fast_top, fast_drain, sites, cancel_any,
+                             cancel_pure)
+        return self._fast_tables
+
+    def _fast_ready(self) -> bool:
+        """Whether this round may take the fast path at all: it is on, the
+        program has a fast site, and no log or event sink wants the
+        per-park records only the exact path writes."""
+        if not self._fast_enabled:
+            return False
+        _, _, sites, cancel_any, cancel_pure = self._build_fast_tables()
+        return bool(sites or cancel_any.any() or cancel_pure.any()) and \
+            not context.log_enabled() and not events.EVENTS.enabled
+
+    def _meta_cols(self) -> list:
+        # C_STATUS leads, so one download serves the round's liveness check
+        # and the classification
+        cols = [C_STATUS, C_PC, C_PARMODE]
+        cols += [self.cols.tstate(l) for l in range(self.cols.nt)]
+        cols += [self.cols.tparg(l) for l in range(self.cols.nt)]
+        return cols
+
+    def _meta_full(self, batch) -> np.ndarray:
+        """The ``_meta_cols`` of every row on the host, one download per
+        shard: uint8 while every pc fits a byte (status, modes and lane
+        states always do), else int32."""
+        dtype = torch.uint8 if self.plan.n_instr < 256 else torch.int32
+        parts = []
+        for shard, _, _ in _shards(batch):
+            dev = shard.regs.device
+            idx = self._meta_idx.get(dev)
+            if idx is None:
+                idx = self._meta_idx[dev] = torch.tensor(
+                    self._meta_cols(), dtype=torch.int64, device=dev)
+            parts.append(shard.regs.index_select(1, idx).to(dtype)
+                         .to("cpu").numpy())
+        return np.concatenate(parts)
+
+    def _fast_call_avail(self, parked: np.ndarray, n: int) -> np.ndarray:
+        """Per-row sync-call availability (1: a sync user_input call, -1:
+        none, 0: not resolved yet). Each row is resolved once, through its
+        IO manager's backend; after that this is a numpy slice."""
+        ok = self._fast_call_ok
+        if ok is None or len(ok) != n:
+            ok = self._fast_call_ok = np.zeros((n,), np.int8)
+        calls = self._fast_call
+        for i in parked[ok[parked] == 0].tolist():
+            call = calls.get(i, _MISS)
+            if call is _MISS:
+                b = getattr(self._io_for(i), "backend", None)
+                call = getattr(b, "user_input_sync", None)
+                if call is None and getattr(b, "sync_io", False):
+                    call = _drive_sync(b.user_input)
+                calls[i] = call
+            ok[i] = 1 if call is not None else -1
+        return ok
+
+    def _cancel_avail(self, parked: np.ndarray, n: int) -> np.ndarray:
+        """Per-row consent to cancel an empty user_choice lane on the device:
+        the backend declares ``empty_choice_pure`` (its wait on an empty
+        list has no effect before it suspends)."""
+        ok = self._cancel_ok
+        if ok is None or len(ok) != n:
+            ok = self._cancel_ok = np.zeros((n,), np.int8)
+        for i in parked[ok[parked] == 0].tolist():
+            b = getattr(self._io_for(i), "backend", None)
+            ok[i] = 1 if getattr(b, "empty_choice_pure", False) else -1
+        return ok
+
+    def _classify_parked(self, batch, parked: np.ndarray,
+                         meta_np: np.ndarray = None):
+        """Split the parked rows into fast site groups ({site pc: rows}),
+        drain cancels ((rows, waiting-lane pcs)) and the exact remainder.
+        Fast needs a fast site (a top-level park there, or a drained race
+        with one waiting lane, parked at a lane-final site), a sync
+        backend, no log or event sink and no pending lane IO for the
+        instance. Numpy over ``meta_np`` (``_meta_full``); no per-row
+        Python once each row's backend is resolved."""
+        none = (np.zeros((0,), np.int64), np.zeros((0,), np.int64))
+        if len(parked) == 0 or not self._fast_ready():
+            return {}, none, parked
+        fast_top, fast_drain, _, cancel_any, cancel_pure = \
+            self._build_fast_tables()
+        has_cancel = bool(cancel_any.any() or cancel_pure.any())
+        k = len(parked)
+        n = _n_rows(batch)
+        if meta_np is None:
+            meta_np = self._meta_full(batch)
+        meta = meta_np[parked].astype(np.int32)[:, 1:]     # drop C_STATUS
+        P = self.plan.n_instr
+        pcs, pm = meta[:, 0], meta[:, 1]
+        top_mask = (pm == PM_NONE) & fast_top[np.clip(pcs, 0, P - 1)]
+        site_pcs = np.where(top_mask, pcs, -1)
+        nt = self.cols.nt
+        cancel_mask = np.zeros((k,), bool)
+        if nt:
+            tst = meta[:, 2:2 + nt]
+            targ = meta[:, 2 + nt:2 + 2 * nt]
+            is_wait = tst == T_WAIT
+            okstates = (is_wait | (tst == T_DONE) | (tst == T_FREE)).all(1)
+            wl = is_wait.argmax(1)
+            wpc = np.clip(targ[np.arange(k), wl], 0, P - 1)
+            drainable = (pm == PM_DRAIN) & (is_wait.sum(1) == 1) & okstates
+            dmask = drainable & fast_drain[wpc]
+            site_pcs = np.where(dmask, wpc, site_pcs)
+            fast_mask = top_mask | dmask
+            if has_cancel:
+                cancel_mask = drainable & cancel_any[wpc]
+                pure = drainable & cancel_pure[wpc]
+                if pure.any():
+                    cancel_mask |= pure & (
+                        self._cancel_avail(parked, n)[parked] == 1)
+        else:
+            wpc = np.zeros((k,), np.int64)
+            fast_mask = top_mask
+        fast_mask &= self._fast_call_avail(parked, n)[parked] == 1
+        fast_mask &= ~cancel_mask
+        pend = self._lanering.pending
+        if pend and (fast_mask.any() or cancel_mask.any()):
+            # pending lane IO sends a row down the exact path
+            prows = [r for r in (self._row_of(g, n) for g in pend)
+                     if r is not None]
+            if prows:
+                keep = ~np.isin(parked, prows)
+                fast_mask &= keep
+                cancel_mask &= keep
+        groups: dict = {}
+        fp = parked[fast_mask]
+        if len(fp):
+            sp = site_pcs[fast_mask]
+            for pc in np.unique(sp):
+                groups[int(pc)] = fp[sp == pc]
+        cancels = (parked[cancel_mask], wpc[cancel_mask])
+        return groups, cancels, parked[~(fast_mask | cancel_mask)]
+
+    def _fast_resume(self, batch, out_slot: int, drain: bool,
+                     uniq: np.ndarray, mi: np.ndarray = None) -> None:
+        """The device-side resume of one fast site, in place on every shard
+        (the JAX package's ``_fast_resume_fn`` and, with ``mi`` None, its
+        lockstep ``_fast_resume_all_fn``, ``vm/turbo.py:2906-3029``).
+        ``uniq`` (U, W+2) uint8 holds the deduped responses, each with its
+        length little-endian in the last two columns; ``mi`` (n, 2) the
+        rows' mask and index into ``uniq`` (None: every row, response 0).
+        Each shard gets its slice of ``mi``: two uploads at most.
+
+        The response goes into the out slot's string row, type and length.
+        A top-level park resumes at pc + 1, one step on. A drained race
+        completes as the exact ring and the thread end after it leave it:
+        the waiting lane's saved pc one on, at the join, lanes freed,
+        parallel registers cleared, epoch bumped, two steps on."""
+        cols = self.cols
+        w = self.tcfg.width
+        for shard, off, size in _shards(batch):
+            part = None if mi is None else mi[off:off + size]
+            if part is not None and not part[:, 0].any():
+                continue
+            dev = shard.regs.device
+            table = torch.from_numpy(uniq).to(dev)
+            lens = table[:, w].int() + table[:, w + 1].int() * 256
+            if part is None:
+                m, rlen, res = None, lens[0], table[0, :w]
+            else:
+                part = torch.from_numpy(part).to(dev)
+                m, inv = part[:, 0] != 0, part[:, 1].long()
+                rlen, res = lens[inv], table[inv, :w]
+            regs = shard.regs
+            put = _column_writer(regs, m)
+            if drain:
+                for l in range(cols.nt):
+                    waiting = regs[:, cols.tstate(l)] == T_WAIT
+                    put(cols.tpc(l), regs[:, cols.tpc(l)] + waiting.int())
+                    put(cols.tstate(l), T_FREE)
+                put(C_PC, regs[:, C_PARJOIN])
+                put(C_STEPS, regs[:, C_STEPS] + 2)
+                put(C_CURTID, -1)
+                put(C_PARMODE, PM_NONE)
+                put(C_PARJOIN, 0)
+                put(C_PAREPOCH, regs[:, C_PAREPOCH] + 1)
+            else:
+                put(C_PC, regs[:, C_PC] + 1)
+                put(C_STEPS, regs[:, C_STEPS] + 1)
+            put(C_STATUS, RUNNING)
+            put(cols.stype(out_slot), T_STR)
+            put(cols.sint(out_slot), 0)
+            put(cols.slen(out_slot), rlen)
+            row = shard.sbuf[cols.str_row[out_slot]]
+            if m is None:
+                row.copy_(res.expand_as(row))
+            else:
+                row.copy_(torch.where(m[:, None], res, row))
+
+    def _fast_cancel(self, batch, rows: np.ndarray,
+                     wpcs: np.ndarray) -> None:
+        """The drain cancel on the device, in place (the JAX package's
+        ``_fast_cancel_fn`` and ``_fast_cancel``, ``vm/turbo.py:2753-2820``):
+        for ``rows``, each a drained race whose one waiting lane (at
+        ``wpcs``) the LaneRing would cancel, complete the block with no slot
+        write: pc := join, RUNNING, one step on, lanes freed, parallel
+        registers cleared, epoch bumped; as the exact ring leaves it."""
+        n = _n_rows(batch)
+        mask = np.zeros((n,), bool)
+        mask[rows] = True
+        for shard, off, size in _shards(batch):
+            part = mask[off:off + size]
+            if not part.any():
+                continue
+            regs = shard.regs
+            put = _column_writer(regs, torch.from_numpy(part).to(
+                regs.device))
+            put(C_PC, regs[:, C_PARJOIN])
+            put(C_STATUS, RUNNING)
+            put(C_STEPS, regs[:, C_STEPS] + 1)
+            put(C_CURTID, -1)
+            put(C_PARMODE, PM_NONE)
+            put(C_PARJOIN, 0)
+            put(C_PAREPOCH, regs[:, C_PAREPOCH] + 1)
+            for l in range(self.cols.nt):
+                put(self.cols.tstate(l), T_FREE)
+        # a user_choice lane ran its task's prefix (TASK_START) and its
+        # park (VM_PARK) on the exact path before the cancel; an
+        # await_insert lane spawns nothing
+        kinds = [self.plan.park_kind_of.get(int(pc), 0) for pc in wpcs]
+        n_choice = kinds.count(vm_config.PARK_USER_CHOICE)
+        if n_choice:
+            self._count_events(n_choice)
+        self.ring_stats["fast_parks"] += len(rows)
+
     @staticmethod
-    def _promotion(i: int, e: Exception) -> NotPorted:
-        return NotPorted(f"promotion of instance {i} to a wider sibling "
-                         f"batch (ROADMAP Queue 1, promotion): {e}")
+    def _count_events(k: int) -> None:
+        """Move the event counters as k exact parks of a task would; the
+        fast path runs only with every sink off, so only counters move."""
+        c = events.EVENTS.counters
+        for kind in (events.TASK_START, events.VM_PARK):
+            c[kind] = c.get(kind, 0) + k
+
+    async def _fast_service(self, batch, groups: dict) -> int:
+        """Service the fast site groups (the JAX package's
+        ``_fast_service``, ``vm/turbo.py:3031``): each row's sync backend
+        call (the one piece of per-row work), a dict dedup of the responses,
+        one device resume per site. A response wider than the slot
+        promotes its instance (``_promote_after_fast``). Returns the rows
+        serviced."""
+        ctx = context
+        fast_drain, sites = self._build_fast_tables()[1:3]
+        w = self.tcfg.width
+        n = _n_rows(batch)
+        n_done = 0
+        for site_pc, rows in groups.items():
+            prompt, out_slot = sites[site_pc]
+            calls = self._fast_call
+            rows_l = rows.tolist()
+            results = [calls[i](prompt) for i in rows_l]
+            self._count_events(len(rows_l))
+            self.ring_stats["fast_parks"] += len(rows_l)
+            n_done += len(rows_l)
+            if len(set(results)) == 1:       # every row the same answer
+                uniq, inv = {results[0]: 0}, None
+            else:
+                uniq, inv = {}, []
+                for r in results:
+                    u = uniq.get(r)
+                    if u is None:
+                        u = uniq[r] = len(uniq)
+                    inv.append(u)
+            enc, too_wide = [], set()
+            for r, u in uniq.items():
+                if not isinstance(r, str):
+                    raise TypeError(f"sync backend returned non-str "
+                                    f"user_input result {type(r).__name__}")
+                data = (r.replace(ctx.INSERT_START,
+                                  ctx.ESCAPE + ctx.INSERT_START)
+                         .replace(ctx.INSERT_STOP,
+                                  ctx.ESCAPE + ctx.INSERT_STOP)
+                         .encode("utf-8"))
+                if len(data) > w:
+                    too_wide.add(u)
+                    data = b""
+                enc.append(data)
+            if too_wide:
+                inv_l = inv if inv is not None else [0] * len(rows_l)
+                wide = [k for k, u in enumerate(inv_l) if u in too_wide]
+                await self._promote_after_fast(
+                    batch, [rows_l[k] for k in wide], site_pc,
+                    [results[k] for k in wide])
+                keep = [k for k, u in enumerate(inv_l) if u not in too_wide]
+                rows_l = [rows_l[k] for k in keep]
+                inv = [inv_l[k] for k in keep]
+                if not rows_l:
+                    continue
+            table = np.zeros((len(enc), w + 2), np.uint8)
+            for u, data in enumerate(enc):
+                table[u, :len(data)] = np.frombuffer(data, np.uint8)
+                table[u, w] = len(data) & 0xFF
+                table[u, w + 1] = len(data) >> 8
+            if len(rows_l) == n and len(enc) == 1:
+                # lockstep: every row at this site with one response
+                self._fast_resume(batch, out_slot, fast_drain[site_pc],
+                                  table)
+                continue
+            mi = np.zeros((n, 2), np.uint8 if len(enc) <= 256 else np.int32)
+            mi[rows_l, 0] = 1
+            if inv is not None:
+                mi[rows_l, 1] = inv
+            self._fast_resume(batch, out_slot, fast_drain[site_pc], table,
+                              mi)
+        return n_done
+
+    async def _promote_after_fast(self, batch, rows: list, site_pc: int,
+                                  raw_results: list) -> None:
+        """Fast-serviced responses too wide for their slot (the JAX
+        package's ``_promote_after_fast``, ``vm/turbo.py:3130``, for several
+        rows at once): the backend answered already, so the store is done
+        on each decoded row on the host and the instance queued for
+        promotion at the state the exact path would leave. For a drained
+        race that is its waiting lane READY at the thread end, the block
+        still open; the sibling runs the thread end."""
+        ctx = context
+        task = self.compiled.source_tasks[site_pc]
+        # a site group's rows ascend, as _gather_sub needs
+        sub, idx = self._gather_sub(batch, np.asarray(rows, np.int64))
+        cols = self.cols
+        lc0, lc1 = cols._loops0, cols._loops0 + cols.n_loops
+        for j, (i, raw) in enumerate(zip(rows, raw_results)):
+            state = self._decode_row(sub, j, i)
+            state["inserts"][task["output_name"]] = (
+                raw.replace(ctx.INSERT_START, ctx.ESCAPE + ctx.INSERT_START)
+                   .replace(ctx.INSERT_STOP, ctx.ESCAPE + ctx.INSERT_STOP))
+            regs = sub["regs"][j]
+            par = None
+            if int(regs[C_PARMODE]) == PM_DRAIN:
+                lanes = range(cols.nt)
+                tstate = regs[[cols.tstate(l) for l in lanes]].copy()
+                tpc = regs[[cols.tpc(l) for l in lanes]].copy()
+                cur = int(np.argmax(tstate == T_WAIT))
+                tstate[cur], tpc[cur] = T_READY, site_pc + 1
+                par = {"cur": cur, "mode": PM_DRAIN,
+                       "join": int(regs[C_PARJOIN]), "tstate": tstate,
+                       "tpc": tpc,
+                       "tparg": regs[[cols.tparg(l) for l in lanes]].copy()}
+            self._queue_promotion(sub, j, i, state, site_pc + 1,
+                                  int(regs[C_STEPS]) + 1,
+                                  regs[lc0:lc1].copy(), par,
+                                  int(regs[C_PAREPOCH]))
+        self._scatter_sub(batch, sub, idx)
+
+    # ---- promotion to a wider sibling batch ----------------------------------
+
+    def _queue_promotion(self, sub: dict, j: int, i: int, state: dict,
+                         pc: int, steps: int, counters, par,
+                         epoch: int) -> None:
+        """Row j (instance i) outgrew this engine's widths: queue its state
+        for the wider sibling (the JAX package's ``_queue_promotion``,
+        ``vm/turbo.py:3188``), or, with promotion off, for an escape, and
+        retire the row here; ``results`` reads the migrated result."""
+        self._out_prefix.pop(i, None)
+        rec = {"state": {"inserts": dict(state["inserts"]),
+                         "output": state["output"]},
+               "pc": int(pc), "steps": int(steps),
+               "counters": np.asarray(counters, np.int32).copy(),
+               "par": par, "epoch": int(epoch)}
+        if self.promote_factor and self.promote_factor > 1:
+            self._promote_states[i] = rec
+        else:
+            self._escape_states[i] = rec
+        self._migrated.add(i)
+        sub["regs"][j, C_STATUS] = DONE
+        sub["regs"][j, C_PC] = self.plan.n_instr - 1
+
+    def _row_from_record(self, rec: dict, i: int) -> dict:
+        """A promotion record as one row of this engine (the sibling's
+        side); raises TurboEncodeError when this engine cannot hold it
+        either."""
+        cols = self.cols
+        output = rec["state"]["output"]
+        spill = len(output.encode("utf-8")) > self.tcfg.out_width // 2
+        row = self._encode_row(dict(rec["state"]["inserts"]),
+                               "" if spill else output, rec["pc"],
+                               rec["steps"])
+        regs = row["regs"]
+        lc0 = cols._loops0
+        k = min(cols.n_loops, len(rec["counters"]))
+        regs[lc0:lc0 + k] = rec["counters"][:k]
+        regs[C_PAREPOCH] = rec["epoch"]
+        par = rec["par"]
+        if par is not None:
+            regs[C_CURTID] = par["cur"]
+            regs[C_PARMODE] = par["mode"]
+            regs[C_PARJOIN] = par["join"]
+            for l in range(cols.nt):
+                regs[cols.tstate(l)] = par["tstate"][l]
+                regs[cols.tpc(l)] = par["tpc"][l]
+                regs[cols.tparg(l)] = par["tparg"][l]
+        if spill:
+            self._out_prefix[i] = (output, 0)   # a fresh row's clear epoch
+        return row
+
+    def _stack_rows(self, rows: list) -> TurboBatch:
+        """Encoded rows as this engine's batch on its device."""
+        def stack(key, axis):
+            return torch.from_numpy(np.stack([r[key] for r in rows],
+                                             axis=axis)).to(self.device)
+        self._n_live = len(rows)
+        return TurboBatch(regs=stack("regs", 0), sbuf=stack("sbuf", 1),
+                          out=stack("out", 0), meta=stack("meta", 1))
+
+    def _wide_tcfg(self):
+        """The promotion sibling's TurboConfig, or None when there is no
+        sibling: promotion is off, or its slots are wider than the step
+        takes on this engine's device."""
+        f, t = self.promote_factor, self.tcfg
+        if not f or f <= 1:
+            return None
+        limit = step_max_width(self.device)
+        if limit is not None and t.width * f > limit:
+            return None
+        return TurboConfig(tile=t.tile, width=t.width * f,
+                           out_width=t.out_width * f, k_steps=t.k_steps,
+                           list_cap=t.list_cap, elem_width=t.elem_width * f)
+
+    async def _flush_promotions(self) -> None:
+        """Run every queued promotion in one sibling batch, ``promote_factor``
+        times wider in width, out_width and elem_width, with this engine's
+        tile, device (a mesh's first), plan, LaneRing, cached IO managers
+        (an instance keeps the backend that already answered it) and fast
+        path switch, and promotion off. The siblings' step tables are built
+        once. What even the sibling cannot hold, or every record when the
+        card's kernel cannot take the sibling's width, is queued for an
+        escape."""
+        if not self._promote_states:
+            return
+        tcfg = self._wide_tcfg()
+        if tcfg is None:
+            self._escape_states.update(self._promote_states)
+            self._promote_states.clear()
+            return
+        kept: list = []
+        wide = TurboEngine(
+            self.compiled, tcfg, io_factory=lambda r: self._io_for(kept[r]),
+            device=self.device, plan=self.plan, lanering=self._lanering,
+            step_tables=self._wide_tables, promote_factor=0)
+        wide._fast_enabled = self._fast_enabled
+        self._wide_tables = wide.step_tables
+        rows = []
+        for i in sorted(self._promote_states):
+            rec = self._promote_states.pop(i)
+            try:
+                rows.append(wide._row_from_record(rec, len(kept)))
+                kept.append(i)
+            except TurboEncodeError:
+                self._escape_states[i] = rec
+        if not rows:
+            return
+        wide.instance_ids = [self._gid(i) for i in kept]
+        final = await wide.run_async(wide._stack_rows(rows))
+        for i, res in zip(kept, wide.results(final, len(kept))):
+            self._escape_results[i] = res
+
+    def _flush_escapes(self) -> None:
+        """The JAX package runs what no turbo sibling can hold in one
+        batched general-engine runner (``_flush_escapes``,
+        ``vm/turbo.py:3305``). The port's general engine lacks opcodes and
+        the shared LaneRing for that, so an escape raises."""
+        if self._escape_states:
+            gids = [self._gid(i) for i in sorted(self._escape_states)]
+            widest = self._wide_tcfg() or self.tcfg
+            raise NotPorted(
+                f"escape of instance {', '.join(map(str, gids))} to the "
+                f"general engine (ROADMAP Queue 1, escapes): its state "
+                f"outgrows the widest turbo batch on {self.device} "
+                f"({widest.width}-byte slots, {widest.out_width}-byte "
+                f"output)")
+
+    # ---- the exact park path -------------------------------------------------
 
     async def _service_lanes(self, sub: dict, j: int, i: int,
                              rts: dict) -> bool:
@@ -684,13 +1289,22 @@ class TurboEngine:
         if res == "parked":
             return False
         steps = int(regs[C_STEPS]) + 1
-        next_pc = view["par_join"] if res == "complete" else \
-            int(view["tpc"][view["cur"]])
+        if res == "complete":
+            next_pc, par = view["par_join"], None
+            epoch = view["par_epoch"] + 1
+        else:
+            next_pc = int(view["tpc"][view["cur"]])
+            par = {"cur": view["cur"], "mode": view["par_mode"],
+                   "join": view["par_join"], "tstate": view["tstate"],
+                   "tpc": view["tpc"], "tparg": view["tpark_arg"]}
+            epoch = view["par_epoch"]
         try:
             self._write_row_delta(sub, j, before, before_output,
                                   view["state"], next_pc, steps, i)
-        except TurboEncodeError as e:
-            raise self._promotion(i, e) from e
+        except TurboEncodeError:
+            self._queue_promotion(sub, j, i, view["state"], next_pc, steps,
+                                  view["counters"], par, epoch)
+            return True
         # lane and block bookkeeping past what the delta write covers
         regs = sub["regs"][j]
         regs[lc0:lc1] = view["counters"][:cols.n_loops]
@@ -741,8 +1355,12 @@ class TurboEngine:
         try:
             self._write_row_delta(sub, j, before, before_output, state,
                                   next_pc, steps, i)
-        except TurboEncodeError as e:
-            raise self._promotion(i, e) from e
+        except TurboEncodeError:
+            # the state outgrew the slot model: on to the wider sibling
+            self._queue_promotion(sub, j, i, state, next_pc, steps,
+                                  counters, None,
+                                  int(sub["regs"][j, C_PAREPOCH]))
+            return True
         sub["regs"][j, lc0:lc1] = counters[:cols.n_loops]
         return True
 
@@ -879,34 +1497,53 @@ class TurboEngine:
                              status: np.ndarray) -> None:
         """Cancel the host IO of finished parallel blocks: a race won on
         the device bumps the row's par_epoch, and the losers' pending IO
-        must go (the reference cancels after FIRST_COMPLETED)."""
+        must go (the reference cancels after FIRST_COMPLETED). A migrated
+        row is DONE here, but its instance's IO belongs to the sibling
+        now (the other lanes of a block promoted with its ``par`` record)."""
         for gid in list(self._lanering.pending):
             row = self._row_of(gid, len(status))
             pend = self._lanering.pending.get(gid)
-            if row is None or pend is None:
+            if row is None or pend is None or row in self._migrated:
                 continue
             if int(epochs[row]) != pend["epoch"] or \
                     status[row] not in (RUNNING, PARKED):
                 await self._lanering.cancel(gid)
 
+    def _count_kinds(self, pcs) -> None:
+        """parks_by_kind: one park of the kind of each pc (a parked row's
+        pc, as the exact path counts it)."""
+        by = self.ring_stats["parks_by_kind"]
+        for pc, cnt in zip(*np.unique(np.asarray(pcs, np.int64),
+                                      return_counts=True)):
+            k = self.plan.park_kind_of.get(int(pc), 0)
+            by[k] = by.get(k, 0) + int(cnt)
+
     async def run_async(self, batch, *, max_rounds: int = 10_000):
-        """Step until no lane is RUNNING or PARKED. Each round launches the
-        step, cancels the IO of finished parallel blocks, gathers every
-        parked row to the host, launches one more step for the running
-        lanes (parked lanes are frozen in the kernel, so it overlaps the
-        host service), services each parked row exactly and scatters the
-        rows back.
+        """Step until no lane is RUNNING or PARKED (the JAX package's
+        ``run_async``, ``vm/turbo.py:3701``, without escapes). Each round
+        launches the step and downloads the status and classification
+        columns (``_meta_full``), cancels the IO of finished parallel
+        blocks, and splits the parked rows (``_classify_parked``). The exact
+        rows are gathered to the host and their service started; the fast
+        rows are serviced and resumed on the device; then one more step runs
+        the running lanes (parked lanes are frozen in the kernel, so it
+        overlaps the host service), and the exact rows are scattered back.
+        A round of fast parks only needs neither. Promotions queued in a
+        round run in a sibling batch concurrently with this one, joined at
+        the end; an escape raises ``NotPorted`` there.
 
         Every device-to-host download runs on a worker thread: it blocks
         until the launches before it finish, and meanwhile the event loop
-        serves a sibling engine's parked rows (``run_pipelined``)."""
-        import asyncio
+        serves a sibling engine's parked rows (``run_pipelined``) or the
+        promotion sibling."""
         step = self.step_fn(_n_rows(batch))
         rts: dict = {}
         stalled = 0
+        rs = self.ring_stats
         for round_no in range(max_rounds):
             batch = step(batch)
-            status = await asyncio.to_thread(self._column, batch)
+            meta = await asyncio.to_thread(self._meta_full, batch)
+            status = meta[:, 0].astype(np.int32)
             if self._lanering.pending:
                 epochs = await asyncio.to_thread(self._column, batch,
                                                  C_PAREPOCH)
@@ -920,25 +1557,53 @@ class TurboEngine:
                                engine="turbo",
                                running=int((status == RUNNING).sum()),
                                parked=len(parked))
-            sub, idx = await asyncio.to_thread(self._gather_sub, batch,
-                                               parked)
-            park_pcs = sub["regs"][:, C_PC].copy()
-            if (status == RUNNING).any():
+            t_ring = time.perf_counter()
+            n_queued = len(self._promote_states) + len(self._escape_states)
+            groups, cancels, slow = self._classify_parked(batch, parked,
+                                                          meta)
+            service = None
+            if len(slow):
+                sub, idx = await asyncio.to_thread(self._gather_sub, batch,
+                                                   slow)
+                park_pcs = sub["regs"][:, C_PC].copy()
+                service = asyncio.gather(*[
+                    self._service(sub, j, int(i), rts)
+                    for j, i in enumerate(slow)])
+            n_fast = 0
+            if len(cancels[0]):
+                self._fast_cancel(batch, *cancels)
+                n_fast += len(cancels[0])
+            if groups:
+                n_fast += await self._fast_service(batch, groups)
+            if n_fast:
+                fast_rows = np.concatenate([cancels[0], *groups.values()])
+                self._count_kinds(meta[fast_rows, 1])
+            if service is not None and ((status == RUNNING).any() or n_fast):
                 batch = step(batch)
-            changed = await asyncio.gather(*[
-                self._service(sub, j, int(i), rts)
-                for j, i in enumerate(parked)])
-            resumed = sum(bool(c) for c in changed)
-            rs = self.ring_stats
+            resumed = n_fast
+            if service is not None:
+                changed = await service
+                resumed += sum(bool(c) for c in changed)
+                self._count_kinds([park_pcs[j] for j, c in enumerate(changed)
+                                   if c])
+                if any(changed):
+                    self._scatter_sub(batch, sub, idx)
             rs["rounds"] = round_no + 1
             rs["parks"] += resumed
-            by = rs["parks_by_kind"]
-            for j, c in enumerate(changed):
-                if c:
-                    k = self.plan.park_kind_of.get(int(park_pcs[j]), 0)
-                    by[k] = by.get(k, 0) + 1
-            if resumed:
-                self._scatter_sub(batch, sub, idx)
+            rs["escapes"] += (len(self._promote_states)
+                              + len(self._escape_states) - n_queued)
+            rs["ring_ms"] += (time.perf_counter() - t_ring) * 1e3
+            if self._promote_states and self.promote_factor:
+                # the promoted instances resume in their sibling now, not
+                # at the end of the run (an interactive program may never
+                # end); the flush pops the queue before its first await
+                self._promo_tasks.append(
+                    asyncio.ensure_future(self._flush_promotions()))
+            if service is None:
+                # fast parks only: every serviced row is RUNNING, and the
+                # next round's download reads the status
+                stalled = 0
+                continue
             status = await asyncio.to_thread(self._column, batch)
             if not ((status == RUNNING) | (status == PARKED)).any():
                 break
@@ -949,6 +1614,12 @@ class TurboEngine:
                 await asyncio.sleep(0.05)
             else:
                 stalled = 0
+        tasks, self._promo_tasks = self._promo_tasks, []
+        for res in await asyncio.gather(*tasks, return_exceptions=True):
+            if isinstance(res, BaseException):
+                raise res
+        await self._flush_promotions()
+        self._flush_escapes()
         n_rows = _n_rows(batch)
         for gid in list(self._lanering.pending):
             if self._row_of(gid, n_rows) is not None:
@@ -956,7 +1627,6 @@ class TurboEngine:
         return batch
 
     def run(self, batch, **kw):
-        import asyncio
         return asyncio.run(self.run_async(batch, **kw))
 
     # ---- results ----------------------------------------------------------------
@@ -970,12 +1640,21 @@ class TurboEngine:
         n = self._n_live if n is None else n
         out = []
         for i in range(n):
+            if i in self._escape_results:     # migrated to the sibling
+                out.append(self._escape_results[i])
+                continue
             state = self._decode_row(host, i, i)
             out.append(InstanceResult(
                 output=state["output"], inserts=state["inserts"],
                 status=int(host["regs"][i, C_STATUS]),
                 steps=int(host["regs"][i, C_STEPS])))
         return out
+
+
+def step_max_width(device) -> Optional[int]:
+    """The widest slot the step takes on ``device``: the kernel's on a
+    card; the plain version on the CPU has no limit."""
+    return MAX_WIDTH if torch.device(device).type == "cuda" else None
 
 
 def _as_sharded(batch) -> ShardedTurboBatch:
@@ -1021,6 +1700,5 @@ async def run_pipelined(pairs, **kw) -> list:
     one engine's coroutine services its parked rows on the host, another's
     launch runs on the device (their downloads wait on worker threads).
     Returns the final batches in pair order."""
-    import asyncio
     return list(await asyncio.gather(
         *[e.run_async(b, **kw) for e, b in pairs]))

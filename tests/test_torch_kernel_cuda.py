@@ -158,15 +158,23 @@ def test_kernel_on_ragged_tiles(rows, cuda):
     held_to_plain(eng, eng.make_batch(n), 16, 4)
 
 
-@pytest.mark.parametrize("shape", ["width512", "width80", "list_literal"])
+@pytest.mark.parametrize("shape", ["width512", "width80", "list_literal",
+                                   "width768", "width2048"])
 def test_kernel_on_wide_narrow_and_scratch_shapes(shape, cuda):
     """Adventure at width 512 (literals left in device memory), at width
-    80 with 32-byte elements (row tails unused), and a list literal whose
-    scratch row lives in shared memory."""
+    80 with 32-byte elements (row tails unused), a list literal whose
+    scratch row lives in shared memory, and the promoted siblings' widths
+    768 and 2048."""
     src, tcfg = {
         "width512": (bench.adventure_program(), TurboConfig(
             width=512, out_width=512, k_steps=16, list_cap=12,
             elem_width=128)),
+        "width768": (bench.adventure_program(), TurboConfig(
+            width=768, out_width=768, k_steps=16, list_cap=12,
+            elem_width=192)),
+        "width2048": (bench.adventure_program(), TurboConfig(
+            width=2048, out_width=2048, k_steps=16, list_cap=12,
+            elem_width=512)),
         "width80": (bench.adventure_program(), TurboConfig(
             width=80, out_width=192, k_steps=16, list_cap=12,
             elem_width=32)),
@@ -175,6 +183,72 @@ def test_kernel_on_wide_narrow_and_scratch_shapes(shape, cuda):
     if shape == "list_literal":
         assert eng.tables.host.scratch_bytes > 0
     held_to_plain(eng, eng.make_batch(333), 16, 4)
+
+
+@pytest.mark.parametrize("width,size", [(768, 600), (2048, 1800)])
+def test_kernel_on_promoted_rows(width, size, cuda):
+    """A sibling batch as promotion builds it (tests/torch_programs.py
+    ``promoted_batch``), with its launch plan: bit for bit the plain
+    version, until every row parks on an output past the sibling's."""
+    from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
+    eng = TurboEngine(compile_src(tp.PROMOTED_PRINT), TurboConfig(
+        width=width, out_width=width, k_steps=16), device=cuda)
+    T = launch_plan(eng.tables, tp.promoted_batch(eng, size, 1)).tile
+    kern = held_to_plain(eng, tp.promoted_batch(eng, size, 2 * T + 5), 2, 3)
+    assert bool((kern.regs[:, 1] == 2).all())          # PARKED
+
+
+def test_kernel_refuses_a_width_past_its_limit(cuda):
+    """No plain fallback on the card: a slot wider than the kernel's 2048
+    bytes raises."""
+    from interpolation_engine_tpu_torch.ops.turbo_step import MAX_WIDTH
+    eng = TurboEngine(compile_src(tp.COPY_TYPES), TurboConfig(
+        width=2 * MAX_WIDTH, out_width=256), device=cuda)
+    with pytest.raises(ValueError, match="kernel maximum"):
+        eng.step_fn(3)(eng.make_batch(3))
+
+
+def test_sibling_past_the_kernel_width_escapes_on_the_card(cuda):
+    """A width-1024 batch would promote into a 4096-byte sibling, past the
+    kernel's 2048: no sibling is built, and the run ends in the escape's
+    NotPorted, not in the kernel's ValueError."""
+    from interpolation_engine_tpu_torch._shared import io_manager as iom
+    from interpolation_engine_tpu_torch.vm.turbo_tables import NotPorted
+    eng = TurboEngine(compile_src(tp.FAST_OVERFLOW), TurboConfig(
+        width=1024, out_width=1024, k_steps=16), io_factory=lambda i:
+        iom.IOManager(iom.ScriptedBackend(["Z" * 1500])), device=cuda)
+    with pytest.raises(NotPorted, match=r"escape of instance 0, 1 .*1024-"):
+        eng.run(eng.make_batch(2))
+    assert not eng._escape_results
+
+
+def test_fast_ring_and_promotion_on_the_card_equal_the_cpu(cuda):
+    """race-io through the fast park path, and an instance promoted to its
+    768-byte sibling mid-run: on the card, through the kernel only, equal
+    to the same runs on the CPU."""
+    from interpolation_engine_tpu_torch._shared import io_manager as iom
+    answers = {0: ["s1", "x2", "x3"], 1: ["B" * 600, "x2", "x3"]}
+    runs = {}
+    for dev in ("cpu", cuda):
+        race = TurboEngine(compile_src(bench.race_io_program(t_max=3)),
+                           TurboConfig(width=128, out_width=128, k_steps=16),
+                           io_factory=lambda i: iom.IOManager(
+                               iom.ScriptedBackend(["cgo"] * 3)), device=dev)
+        promo = TurboEngine(compile_src(tp.PROMOTE_MID_RUN), TurboConfig(
+            tile=8, width=192, out_width=192, k_steps=24),
+            io_factory=lambda i: iom.IOManager(
+                iom.ScriptedBackend(list(answers[i % 2]))), device=dev)
+        before = turbo_step.launches, turbo_step_reference.launches
+        res = [e.results(e.run(e.make_batch(n))) for e, n in
+               ((race, 300), (promo, 6))]
+        launched = (turbo_step.launches - before[0],
+                    turbo_step_reference.launches - before[1])
+        assert race.ring_stats["fast_parks"] == 900
+        assert sorted(promo._escape_results) == [1, 3, 5]
+        runs[str(dev)] = [[(r.output, r.inserts, r.status, r.steps)
+                           for r in rr] for rr in res], launched
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert runs["cuda"][1][0] > 0 and runs["cuda"][1][1] == 0
 
 
 def test_kernel_leaves_tiles_without_a_running_instance(cuda):

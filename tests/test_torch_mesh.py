@@ -10,8 +10,8 @@ import pytest
 import torch
 
 import bench
-from torch_helpers import (compile_port, jax_engine, port_engine, run_host,
-                           summary)
+from torch_helpers import (compile_port, fast_ring, jax_engine, port_engine,
+                           run_host, summary)
 
 from interpolation_engine_tpu.io.manager import IOManager, ScriptedBackend
 from interpolation_engine_tpu.vm import turbo as jax_turbo
@@ -235,17 +235,44 @@ def test_sharded_ring_maps_ids_through_every_shard():
         assert f"a=A{i} b=B{i}" in out
 
 
-def test_promotion_still_raises_not_ported_on_a_mesh():
-    src = """{default_state: {order_index: 1, inserts: {s: 'ab'}},
-              order: [{cmd:'user_input', prompt:'? ', output_name:'s'},
-                      {cmd:'print', text:'{s}'}],
-              named_tasks: {}, save_states: {}}"""
+ECHO = """{default_state: {order_index: 1, inserts: {s: 'ab'}},
+          order: [{cmd:'user_input', prompt:'? ', output_name:'s'},
+                  {cmd:'print', text:'{s}'}],
+          named_tasks: {}, save_states: {}}"""
+
+
+def echo_engine(answer):
+    """ECHO over MESH4, instance i answering ``answer * (i + 1)``."""
     io = port.io_manager
-    eng = pt.TurboEngine(compile_port(src), pt.TurboConfig(**RING_SIZES),
-                         io_factory=lambda i: io.IOManager(
-                             io.ScriptedBackend(["x" * 100])), mesh=MESH4)
-    with pytest.raises(NotPorted, match="promotion"):
-        eng.run(eng.make_batch(4))
+    return pt.TurboEngine(compile_port(ECHO), pt.TurboConfig(**RING_SIZES),
+                          io_factory=lambda i: io.IOManager(
+                              io.ScriptedBackend([answer * (i + 1)])),
+                          mesh=MESH4)
+
+
+def test_promotion_still_raises_not_ported_on_a_mesh():
+    """Past the sibling, promotion on a mesh still ends in NotPorted:
+    answers of 300 bytes and more outgrow the 256-byte sibling of the
+    64-byte shards, and their escape to the general engine, which the port
+    does not have yet, raises, naming the escaped instances."""
+    eng = echo_engine("x" * 100)
+    with pytest.raises(NotPorted, match="escape of instance 2, 3, 4, 5"):
+        eng.run(eng.make_batch(8))
+
+
+def test_promotion_on_a_mesh_agrees_with_host(tmp_path, capsys):
+    """A 75-byte answer and more outgrow the 64-byte slots of every shard,
+    and each such instance finishes in the one 256-byte sibling on the
+    mesh's first device, equal to the host."""
+    eng = echo_engine("x" * 25)
+    res = eng.results(eng.run(eng.make_batch(8)))
+    assert sorted(eng._escape_results) == [2, 3, 4, 5, 6, 7]   # > 64 bytes
+    for i, r in enumerate(res):
+        host = run_host(ECHO, tmp_path, ["x" * 25 * (i + 1)])
+        capsys.readouterr()
+        assert r.status == DONE
+        assert (r.output, r.inserts) == (host["output"],
+                                         dict(host["inserts"]))
 
 
 # ---- shard engines ------------------------------------------------------------------
@@ -256,7 +283,10 @@ RACE_IO = bench.race_io_program(t_max=3)
 def test_shard_engines_run_pipelined_equal_one_engine():
     """make_shard_engines(2) + assign_shard_ids + run_pipelined on race-io:
     the final batches, concatenated, equal the single engine's; the ids
-    are disjoint and the siblings share one LaneRing and the tables."""
+    are disjoint and the siblings share one LaneRing and the tables. Every
+    park takes the exact path here, so that each goes through the shared
+    LaneRing under its global id (the fast path's pipelined run is in
+    tests/test_torch_turbo_fastring.py)."""
     n, tcfg = 8, pt.TurboConfig(width=64, out_width=128, k_steps=16)
     io = port.io_manager
 
@@ -265,8 +295,9 @@ def test_shard_engines_run_pipelined_equal_one_engine():
     single = pt.TurboEngine(compile_port(RACE_IO), tcfg, io_factory=factory,
                             device="cpu")
     ref = single.run(single.make_batch(n))
-    engines = pt.make_shard_engines(compile_port(RACE_IO), tcfg, 2,
-                                    io_factory=factory, device="cpu")
+    with fast_ring(False):
+        engines = pt.make_shard_engines(compile_port(RACE_IO), tcfg, 2,
+                                        io_factory=factory, device="cpu")
     pt.assign_shard_ids(engines, n // 2)
     a, b = engines
     assert a._lanering is b._lanering and a.plan is b.plan

@@ -86,8 +86,28 @@ def test_output_spill(src, tmp_path, capsys):
 
 
 def test_value_too_wide_raises_not_ported():
-    with pytest.raises(NotPorted, match="promotion"):
+    """A value too wide even for the 4x sibling (500 bytes against 256)
+    would escape to the general engine, which the port does not do yet."""
+    with pytest.raises(NotPorted, match=r"escape of instance 0 .*escapes"):
         run_port(tp.USER_INPUT, 1, responses=["x" * 500])
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "exact"])
+def test_value_too_wide_promotes_to_the_sibling(fast, tmp_path, capsys):
+    """200 bytes outgrow the 64-byte slot and fit the 256-byte sibling: the
+    instance finishes there, equal to the host, through either park path."""
+    answer = ["y" * 200]
+    host = run_host(tp.USER_INPUT, tmp_path, answer)
+    capsys.readouterr()
+    eng = port_engine(tp.USER_INPUT, responses=answer, fast=fast)
+    results = eng.results(eng.run(eng.make_batch(2), max_rounds=500))
+    assert sorted(eng._escape_results) == [0, 1]
+    assert eng.ring_stats["escapes"] == 2
+    assert eng.ring_stats["fast_parks"] == (2 if fast else 0)
+    for r in results:
+        assert r.status == DONE
+        assert (r.output, r.inserts) == (host["output"],
+                                         dict(host["inserts"]))
 
 
 def test_step_checks_rows_dtype_and_layout():

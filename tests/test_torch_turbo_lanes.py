@@ -79,13 +79,18 @@ def race_io_jax():
 
 
 def test_race_io_agrees_with_jax(race_io_jax):
+    """The port's fast park path and its exact ring both count as the JAX
+    exact ring: 47 steps and 24 parks, every lane park of the fast run on
+    the fast path."""
     jax_res, jax_parks = race_io_jax[False]
-    eng = port_engine(RACE_IO, responses=["cgo"] * 3)
-    res = eng.results(eng.run(eng.make_batch(8), max_rounds=500))
-    assert eng.ring_stats["parks"] == jax_parks == 24   # 3 per instance
-    assert [summary(r) for r in res] == [summary(j) for j in jax_res]
-    for r in res:
-        assert (r.status, r.steps, r.output) == (DONE, 47, RACE_IO_OUT)
+    for fast in (True, False):
+        eng = port_engine(RACE_IO, responses=["cgo"] * 3, fast=fast)
+        res = eng.results(eng.run(eng.make_batch(8), max_rounds=500))
+        assert eng.ring_stats["parks"] == jax_parks == 24  # 3 per instance
+        assert eng.ring_stats["fast_parks"] == (24 if fast else 0)
+        assert [summary(r) for r in res] == [summary(j) for j in jax_res]
+        for r in res:
+            assert (r.status, r.steps, r.output) == (DONE, 47, RACE_IO_OUT)
     # the JAX fast park path resumes a drained race at its join without
     # the lane's thread end: the same results, one step fewer per turn
     fast_res, fast_parks = race_io_jax[True]

@@ -90,9 +90,9 @@ def test_repr_longer_than_width_parks(tmp_path, capsys):
     src = prog("{l: ['%s', '%s']}" % ("x" * 30, "y" * 30),
                "{cmd:'set', item:'<{l}>', output_name:'r'}",
                "{cmd:'print', text:'{r}'}")
-    parks_at(src, 0)     # 68 bytes > the 64-byte slot
-    with pytest.raises(NotPorted, match="promotion"):
-        run_port(src, 1)
+    parks_at(src, 0)     # 68 bytes > the 64-byte slot; the sibling's 256
+    r = agree_with_host(src, tmp_path, capsys)
+    assert r.output == "<%s>" % ['x' * 30, 'y' * 30]
 
 
 # ---- slice, append, remove, index, concat, join --------------------------------
@@ -133,18 +133,20 @@ def test_append_parks_on_a_missing_list_and_at_capacity(tmp_path, capsys):
                 "{cmd:'list_append', list:'{l}', item:'q', output_name:'l'}")
     eng, batch = parks_at(full, 0)
     assert batch.regs[0, eng.cols.slen(eng.plan.slot_of["l"])] == 12
-    # the host's 13 elements outgrow the slot: promotion, not ported
-    with pytest.raises(NotPorted, match="promotion"):
+    # the host's 13 elements outgrow the sibling's 12 too: an escape to the
+    # general engine, not ported
+    with pytest.raises(NotPorted, match="escape"):
         run_port(full, 1)
 
 
-def test_append_parks_on_an_element_longer_than_its_cell():
+def test_append_parks_on_an_element_longer_than_its_cell(tmp_path, capsys):
     src = prog("{l: ['a'], w: '%s'}" % ("w" * 33),
                "{cmd:'list_append', list:'{l}', item:'{w}', "
                "output_name:'l'}")
     parks_at(src, 0)
-    with pytest.raises(NotPorted, match="promotion"):
-        run_port(src, 1)
+    # the sibling's 128-byte cells hold it
+    assert agree_with_host(src, tmp_path, capsys).inserts["l"] == \
+        ["a", "w" * 33]
 
 
 def test_append_to_another_slot_copies_the_source(tmp_path, capsys):
@@ -199,8 +201,8 @@ def test_concat_parks_past_the_list_capacity(tmp_path, capsys):
         "v=['y', 'z', 'x', 'y', 'z']"
     over = prog("{a: %s, b: %s}" % (seven, seven),
                 "{cmd:'list_concat', lists:['{a}','{b}'], output_name:'c'}")
-    parks_at(over, 0)
-    with pytest.raises(NotPorted, match="promotion"):
+    parks_at(over, 0)    # 14 elements: past the sibling's 12 as well
+    with pytest.raises(NotPorted, match="escape"):
         run_port(over, 1)
 
 
@@ -215,8 +217,8 @@ def test_join_parks_on_a_non_string_element_and_on_overflow(tmp_path,
                 "{cmd:'list_join', list:'{l}', before:'<', between:'--', "
                 "after:'>', output_name:'j'}")
     parks_at(long, 0)    # 65 bytes with the before, between and after
-    with pytest.raises(NotPorted, match="promotion"):
-        run_port(long, 1)
+    assert agree_with_host(long, tmp_path, capsys).inserts["j"] == \
+        "<%s--%s>" % ("x" * 31, "y" * 30)
 
 
 def test_join_renders_before_between_and_after(tmp_path, capsys):

@@ -49,6 +49,13 @@ SHAPES = {
                      "named_tasks: {}, save_states: {}}", ADVENTURE),
     "adventure_w80": (bench.adventure_program(), TurboConfig(
         width=80, out_width=192, k_steps=8, list_cap=12, elem_width=32)),
+    # promoted siblings: the bench's width-512 cell 4x (literals in device
+    # memory), and the JAX promotion tests' 192-byte batch 4x
+    "adventure_w2048": (bench.adventure_program(), TurboConfig(
+        width=2048, out_width=2048, k_steps=64, list_cap=12,
+        elem_width=512)),
+    "promoted_w768": (tp.WIDE_VALUE, TurboConfig(
+        tile=8, width=768, out_width=768, k_steps=24)),
 }
 # cards with less shared memory than the H100's (per SM, per block opt-in,
 # reserved per block), from NVIDIA's CUDA programming guide
@@ -390,17 +397,36 @@ def test_rehearsed_ragged_tiles(n, rehearsal):
 
 
 @pytest.mark.parametrize("name", ["adventure_w512", "adventure_w80",
-                                  "list_literal", "spine"])
+                                  "list_literal", "spine", "adventure_w2048",
+                                  "promoted_w768"])
 def test_rehearsed_shapes(name, rehearsal):
     """Width 512 (literals left in device memory), width 80 with 32-byte
-    elements (row tails unused), a list literal's scratch row, and the
-    default tile."""
+    elements (row tails unused), a list literal's scratch row, the default
+    tile, and the promoted siblings' widths 2048 (literals in device
+    memory, 5 instances a block) and 768."""
     eng = engine(name)
     batch = eng.make_batch(50)
     spread(eng, batch)
     plan = ts.tile_plan(eng.tables, batch)
-    assert (plan.lits_off < 0) == (name == "adventure_w512")
+    assert (plan.lits_off < 0) == (name in ("adventure_w512",
+                                            "adventure_w2048"))
     hold(rehearsal, eng, batch, 16, 3, plan)
+
+
+@pytest.mark.parametrize("width,size", [(768, 600), (2048, 1800)])
+def test_rehearsed_promoted_rows(width, size, rehearsal):
+    """A sibling batch as promotion builds it, with values of 600 bytes and
+    more at width 768 and of 1,800 at 2048: printed, copied, and parked
+    once the output outgrows the sibling's buffer; with its tile_plan."""
+    eng = TurboEngine(compile_src(tp.PROMOTED_PRINT), TurboConfig(
+        width=width, out_width=width, k_steps=16), device="cpu")
+    plan = ts.tile_plan(eng.tables, tp.promoted_batch(eng, size, 1))
+    batch = tp.promoted_batch(eng, size, 2 * plan.tile + 5)   # ragged
+    kern = hold(rehearsal, eng, batch, 2, 3, plan)
+    status = kern.regs[:, C_STATUS]
+    assert bool((status == PARKED).all())
+    out = eng.results(kern)[0].output
+    assert out == "<" + "B" * size + ">"
 
 
 @pytest.mark.parametrize("card", sorted(CARDS))

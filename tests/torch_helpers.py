@@ -8,6 +8,7 @@ classes: the port keeps its own copy of the host layers, so its singletons
 package's. ``compile_port`` holds the two ``CompiledProgram``s equal."""
 
 import asyncio
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -116,12 +117,26 @@ def same_error(port_call, e: Exception, message: bool = True):
     return err.value
 
 
-def port_engine(src: str, tcfg=PORT_TCFG, responses=(), **kw):
-    """The port's turbo engine on the CPU, or over ``mesh=``."""
+@contextlib.contextmanager
+def fast_ring(on: bool):
+    """``IE_TPU_FAST_RING`` for the port's engines made inside: each reads
+    it when it is made (a promotion sibling takes its parent's switch), so
+    ``fast_ring(False)`` sends every park of theirs the exact way."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("IE_TPU_FAST_RING", "1" if on else "0")
+        yield
+
+
+def port_engine(src: str, tcfg=PORT_TCFG, responses=(), fast: bool = True,
+                **kw):
+    """The port's turbo engine on the CPU, or over ``mesh=``, with its fast
+    park path on or off."""
     if "mesh" not in kw:
         kw["device"] = "cpu"
-    return port_turbo.TurboEngine(compile_port(src), tcfg,
-                                  io_factory=port_scripted(responses), **kw)
+    with fast_ring(fast):
+        return port_turbo.TurboEngine(compile_port(src), tcfg,
+                                      io_factory=port_scripted(responses),
+                                      **kw)
 
 
 def jax_engine(src: str, tcfg=JAX_TCFG, responses=()):

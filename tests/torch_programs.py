@@ -786,3 +786,212 @@ def random_program(rng) -> dict:
                       {"cmd": "label", "name": name}]
     return {"default_state": {"order_index": 1, "inserts": inserts},
             "order": tasks, "named_tasks": {}, "save_states": {}}
+
+
+# ---- the ring's fast park path and promotion (the JAX package's
+# tests/test_turbo.py:1377-1979) ---------------------------------------------
+
+# top-level literal-prompt user_input, three per instance
+FAST_RING = """
+{
+    default_state: {order_index: 1, inserts: {i: 0, acc: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{i} + 1', output_name:'i'},
+        {cmd:'user_input', prompt:'? ', output_name:'ans'},
+        {cmd:'math', input:'{acc} + {i}', output_name:'acc'},
+        {cmd:'goto_map', text:'{i}', target_maps:[
+            {'3': '@end'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'fin {acc} last={ans}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# a blocking user_input as its lane's last task, raced against a compute
+# lane: the drained race completes right after it
+DRAIN_RACE = """
+{
+    default_state: {order_index: 1, inserts: {turn: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{turn} + 1', output_name:'turn'},
+        {cmd:'parallel_race', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'gen-{turn}', output_name:'gen'},
+                {cmd:'print', text:'[{gen}]'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'user_input', prompt:'> ', output_name:'cmdin'},
+            ]},
+        ]},
+        {cmd:'print', text:'<{cmdin}>'},
+        {cmd:'goto_map', text:'{turn}', target_maps:[
+            {'3': '@end'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'fin {gen}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# drained races whose waiting lane sits at an await_insert or an empty
+# user_choice: cancelled with no state write
+DRAIN_CANCEL = """
+{
+    default_state: {order_index: 1, inserts: {turn: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{turn} + 1', output_name:'turn'},
+        {cmd:'parallel_race', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'gen-{turn}', output_name:'gen'},
+                {cmd:'print', text:'[{gen}]'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'await_insert', name:'won'},
+                {cmd:'print', text:'UNREACHED'},
+            ]},
+        ]},
+        {cmd:'parallel_race', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'await_insert', name:'gen'},
+                {cmd:'print', text:'SYNC-UNREACHED'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'w-{turn}', output_name:'won'},
+            ]},
+        ]},
+        {cmd:'parallel_race', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'print', text:'({won})'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'user_choice', list:[], description:'pick',
+                 output_name:'chs'},
+            ]},
+        ]},
+        {cmd:'goto_map', text:'{turn}', target_maps:[
+            {'3': '@end'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'fin {gen} {won}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# a chat-sized write-back between two uses of narrow slots
+WIDE_VALUE = """
+{
+    default_state: {order_index: 1, inserts: {pre: 'p'}},
+    order: [
+        {cmd:'set', item:'{pre}-x', output_name:'tag'},
+        {cmd:'user_input', prompt:'say? ', output_name:'big'},
+        {cmd:'set', item:'tail:{tag}', output_name:'t2'},
+        {cmd:'print', text:'len done {t2};'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+FAST_OVERFLOW = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'user_input', prompt:'? ', output_name:'v'},
+        {cmd:'set', item:'t', output_name:'tail'},
+        {cmd:'print', text:'done {tail}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# three turns of input; an instance that outgrows its slot at turn 1 must
+# answer turns 2 and 3 in its sibling
+PROMOTE_MID_RUN = """
+{
+    default_state: {order_index: 1, inserts: {turn: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{turn} + 1', output_name:'turn'},
+        {cmd:'user_input', prompt:'say? ', output_name:'said'},
+        {cmd:'print', text:'t{turn};'},
+        {cmd:'goto_map', text:'{turn}', target_maps:[
+            {'3': '@end'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'fin {turn}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# an input lane that is not its lane's last task, in a parallel_wait: it
+# parks the instance, which the exact ring promotes with the block open
+PROMOTE_IN_BLOCK = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'parallel_wait', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'user_input', prompt:'? ', output_name:'big'},
+                {cmd:'print', text:'[{big}]'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'g', output_name:'gen'},
+                {cmd:'print', text:'<{gen}>'},
+            ]},
+        ]},
+        {cmd:'print', text:'fin {gen}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# two input lanes in a parallel_wait: the second answers at once (and may
+# outgrow its slot) while the first one's IO is still pending
+PROMOTE_PENDING = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'parallel_wait', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'user_input', prompt:'slow? ', output_name:'s'},
+                {cmd:'print', text:'[{s}]'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'user_input', prompt:'big? ', output_name:'big'},
+                {cmd:'print', text:'<{big}>'},
+            ]},
+        ]},
+        {cmd:'print', text:'end'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# rows of a promoted sibling: a value far past the parent's slot, printed
+# and copied, until the output outgrows the sibling's buffer and parks
+PROMOTED_PRINT = """
+{
+    default_state: {order_index: 1, inserts: {big: 'x'}},
+    order: [
+        {cmd:'print', text:'<{big}>'},
+        {cmd:'set', item:'[{big}]', output_name:'w'},
+        {cmd:'print', text:'{w}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+
+def promoted_batch(eng, size: int, n: int):
+    """A batch of n rows of PROMOTED_PRINT as promotion builds a sibling's
+    (``_row_from_record``, ``_stack_rows``): row k holds a value of
+    size + k % 64 bytes, a (k % 64)-byte output and 3 steps."""
+    import numpy as np
+    return eng._stack_rows([eng._row_from_record(
+        {"state": {"inserts": {"big": "B" * (size + k % 64)},
+                   "output": "o" * (k % 64)},
+         "pc": 0, "steps": 3, "counters": np.zeros((0,), np.int32),
+         "par": None, "epoch": 0}, k) for k in range(n)])
