@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``interpolation_engine_tpu_torch``) on one CUDA
 card and check it.
 
-    python3 chip_smoke.py      # phases 1-13 and the result lines
+    python3 chip_smoke.py      # phases 1-15 and the result lines
 
 Phases, each of which raises on any failure (the script then exits non-zero
 and prints no result):
@@ -89,7 +89,22 @@ and prints no result):
    mid-run into one sibling batch of width 2048, whose first kernel
    launches are held bit for bit against the plain version; every instance
    equal to the host with 47 steps; the sibling's tile and its ms per
-   launch (queued), beside the plain version's and its bound.
+   launch (queued), beside the plain version's and its bound;
+14. the general engine's 11 opcodes past its first 19 (``unescape``,
+   ``goto_map`` with template keys, ``math``, the list ops, ``replace_map``,
+   ``delete``, ``delete_except``, ``random_choice``): the test program
+   ``GENERAL_OPS`` on the bench's general VMConfig at 131,072 instances,
+   every brace-scan call of the first two launches held against the plain
+   version, then ``run`` to DONE with every instance equal to the host
+   (its random_choice given the device's pick, the JAX LCG from rng = row
+   + 1); steps, launches, brace-scan launches, wall time and tasks/s,
+   ``ring_stats``, and the torch calls of one step of each handler;
+15. escapes: race-io at phase 13's width-512 shape, 16,384 instances,
+   where one instance in 16 answers 3,000 bytes at turn 1, wider than the
+   2,048-byte sibling: those 1,024 instances escape to one general-engine
+   batch (its lane IO through the shared LaneRing), every instance equal
+   to the host; then the same from the mesh engine (phase 11's mesh) at
+   4,096 instances; the escape runner's ``ring_stats``.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -1369,6 +1384,225 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
         f"{tile_line(tables, first, wide.tile)}")
 
 
+def host_with_choice(src: str, tmp: str, pick: int) -> dict:
+    """The host engine's final state where its random_choice takes element
+    ``pick`` (the device's, by the JAX LCG; the host's own is Python's
+    generator)."""
+    import random
+    from interpolation_engine_tpu_torch._shared import io_manager
+    old = random.choice
+    random.choice = lambda seq: seq[pick]
+    try:
+        return run_host(src, io_manager.IOManager(io_manager.BufferBackend()),
+                        tmp)
+    finally:
+        random.choice = old
+
+
+def check_groups(name: str, host: dict, groups: dict, want: dict) -> None:
+    """Every general-engine row equals the host: the rows of one group
+    (same expected result) are compared field by field with the group's
+    first row (``rng`` aside), which is decoded and held against ``want``;
+    a row that differs from it is decoded on its own."""
+    import numpy as np
+    from interpolation_engine_tpu_torch.vm import state as vs
+    for key, rows in groups.items():
+        first = vs.row_of(host, rows[0])
+        same = np.ones(len(rows), bool)
+        for f in vs.FIELDS:
+            if f != "rng":
+                a = host[f][rows]
+                same &= (a == a[:1]).reshape(len(rows), -1).all(axis=1)
+        for r in [rows[0]] + [int(x) for x in rows[~same]]:
+            st = vs.row_of(host, r) if r != rows[0] else first
+            got = (int(st["status"]), vs.decode_output(st),
+                   vs.decode_inserts(st))
+            if got != want[key]:
+                raise AssertionError(f"{name}: instance {r}: {got} != "
+                                     f"{want[key]}")
+
+
+def count_torch_calls(runner, batch, names: dict) -> dict:
+    """Torch calls (``__torch_function__`` dispatches: tensor ops, copies
+    and host reads) of one step of each handler, on ``batch`` run to its
+    end: handler name -> calls per step."""
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    step = runner.step
+    run_group = step._run_group
+    calls, groups = {}, {}
+
+    def counted(st, pc):
+        name = names[int(step.code[pc][0])]
+        Count.n = 0
+        with Count():
+            out = run_group(st, pc)
+        calls[name] = calls.get(name, 0) + Count.n
+        groups[name] = groups.get(name, 0) + 1
+        return out
+    step._run_group = counted
+    try:
+        runner.launch(batch, 64)
+    finally:
+        step._run_group = run_group
+    return {k: calls[k] // groups[k] for k in sorted(
+        calls, key=lambda k: -calls[k] / groups[k])}
+
+
+def phase14(card: str, tmp: str, n: int = 131_072) -> None:
+    """The general engine's 11 opcodes past its first 19 (GENERAL_OPS) at
+    the bench's width, brace scan checked in the first launches, then run
+    to DONE with every instance held against the host."""
+    import numpy as np
+    import torch
+    import torch_programs as tp
+    from interpolation_engine_tpu_torch._shared import isa, vm_config
+    from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
+    from interpolation_engine_tpu_torch.ops import interp_kernel as ik
+    from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
+    src = tp.GENERAL_OPS
+    want = {}
+    for pick in range(3):
+        host = host_with_choice(src, tmp, pick)
+        want[pick] = (vm_config.DONE, host["output"], dict(host["inserts"]))
+    runner = DeviceRunner(compile_src(src), vm_config.VMConfig(**GENERAL_CFG),
+                          device="cuda")
+    checked = CheckedScan(scan_mod.brace_scan, scan_mod.brace_scan_reference)
+    ik.scan_mod = type("ScanHook", (), {"brace_scan": checked})
+    inner = 8
+    try:
+        checked.check = True
+        b = runner.make_instances(n)
+        for _ in range(2):
+            b = runner.launch(b, inner)
+        torch.cuda.synchronize()
+        checked.check = False
+    finally:
+        ik.scan_mod = scan_mod
+    if checked.compared == 0:
+        raise AssertionError("phase 14: no brace-scan call was compared")
+    del b
+    torch_calls = count_torch_calls(runner, runner.make_instances(4096),
+                                    isa.OP_NAMES)
+
+    launches = []
+    launch = runner.launch
+
+    def counted(batch, k):
+        launches.append(k)
+        return launch(batch, k)
+    runner.launch = counted
+    batch = runner.make_instances(n)
+    torch.cuda.synchronize()
+    scan_mod.brace_scan.launches = 0
+    scan_mod.brace_scan_reference.launches = 0
+    t0 = time.perf_counter()
+    final = runner.run(batch, inner_steps=inner)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    scans = scan_mod.brace_scan.launches
+    if scans <= 0 or scan_mod.brace_scan_reference.launches != 0:
+        raise AssertionError(
+            f"phase 14: the run launched the brace-scan kernel {scans} "
+            f"times and the plain version "
+            f"{scan_mod.brace_scan_reference.launches} times")
+    host = final.to_numpy()
+    picks = np.asarray([tp.general_ops_choice(i + 1) for i in range(n)])
+    check_groups("phase 14", host, {k: np.nonzero(picks == k)[0]
+                                    for k in range(3)}, want)
+    steps = int(host["steps"].astype(np.int64).sum())
+    log(f"phase 14 general engine, the 11 opcodes (GENERAL_OPS) "
+        f"[{card}]: {checked.compared} brace-scan calls in the first 2 "
+        f"launches at {n} instances, each bit-identical to the plain "
+        f"version; then {n} instances to DONE, each equal to the host "
+        f"(random_choice by the JAX LCG from rng = row + 1): {steps} steps "
+        f"in {len(launches)} launches x {inner} steps, {elapsed:.3f} s = "
+        f"{steps / elapsed:.1f} tasks/s; {scans} brace-scan launches; "
+        f"ring_stats {json.dumps(runner.ring_stats)}")
+    log(f"phase 14 torch calls per step by handler (4,096 instances): "
+        f"{json.dumps(torch_calls)}")
+
+
+def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
+            n_mesh: int = 4096) -> None:
+    """Escapes: race-io at the bench's width-512 shape where one instance
+    in ``every`` answers 3,000 bytes at turn 1, wider than the 2,048-byte
+    sibling: those instances escape to one general-engine batch. Then the
+    same from the mesh engine (four shards of cuda:0, or one per card)."""
+    import bench
+    import torch
+    from interpolation_engine_tpu_torch._shared import io_manager as iom
+    from interpolation_engine_tpu_torch.ops.brace_scan import (
+        brace_scan, brace_scan_reference)
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        sharded_turbo_step, turbo_step, turbo_step_reference)
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        DONE, TurboConfig, TurboEngine)
+    src = bench.race_io_program(t_max=3)
+    # the long answer starts with 'c', so the instance plays on
+    answers = {False: ["cgo"] * 3, True: ["c" + "L" * 2999, "cgo", "cgo"]}
+    want = {}
+    for big, said in answers.items():
+        host = run_host(src, iom.IOManager(iom.ScriptedBackend(list(said))),
+                        tmp)
+        want[big] = (host["output"], dict(host["inserts"]), DONE)
+    tcfg = TurboConfig(width=512, out_width=512, k_steps=16, list_cap=12,
+                       elem_width=128)
+    n_cards = torch.cuda.device_count()
+    mesh = ([f"cuda:{d}" for d in range(n_cards)] if n_cards > 1
+            else ["cuda:0"] * 4)
+    for label, size, kw in (("one card", n, {"device": "cuda"}),
+                            (f"mesh of {len(mesh)} shards", n_mesh,
+                             {"mesh": mesh})):
+        eng = TurboEngine(compile_src(src), tcfg, io_factory=lambda i:
+                          iom.IOManager(iom.ScriptedBackend(
+                              list(answers[i % every == 0]))), **kw)
+        for fn in (turbo_step, turbo_step_reference, sharded_turbo_step,
+                   brace_scan, brace_scan_reference):
+            fn.launches = 0
+        final, elapsed, exact, _ = ring_run(eng, size)
+        escaped = list(range(0, size, every))
+        step_kernel = (sharded_turbo_step if "mesh" in kw
+                       else turbo_step).launches
+        if sorted(eng._escape_results) != escaped or \
+                eng.ring_stats["escapes"] != len(escaped) or \
+                len(eng.escape_runners) != 1 or step_kernel <= 0 or \
+                brace_scan.launches <= 0 or \
+                turbo_step_reference.launches != 0 or \
+                brace_scan_reference.launches != 0:
+            raise AssertionError(
+                f"phase 15 {label}: {len(eng._escape_results)} escaped, "
+                f"escapes {eng.ring_stats['escapes']}, "
+                f"{len(eng.escape_runners)} runners, step kernel "
+                f"{step_kernel}, brace scan {brace_scan.launches}, plain "
+                f"{turbo_step_reference.launches} and "
+                f"{brace_scan_reference.launches}")
+        for i, r in enumerate(eng.results(final)):
+            if (r.output, r.inserts, r.status) != want[i % every == 0]:
+                raise AssertionError(f"phase 15 {label}: instance {i}: "
+                                     f"{r} != {want[i % every == 0]}")
+        [runner] = eng.escape_runners
+        steps = sorted({r.steps for r in eng.results(final)})
+        log(f"phase 15 escapes, {label} [{card}]: race-io at width "
+            f"{tcfg.width}, {size} instances, every {every}th answering "
+            f"3,000 bytes at turn 1: {len(escaped)} escaped (ring_stats "
+            f"escapes {eng.ring_stats['escapes']}) to one general-engine "
+            f"batch (max_str {runner.cfg.max_str}, arena "
+            f"{runner.cfg.arena_size} bytes) on {runner.device}; every "
+            f"instance DONE equal to the host (steps {steps}); "
+            f"{fast_split(eng)}; {step_kernel} step-kernel and "
+            f"{brace_scan.launches} brace-scan launches in {elapsed:.3f} "
+            f"s; the escape runner's ring_stats "
+            f"{json.dumps(runner.ring_stats)}")
+
+
 def programs() -> dict:
     """Phase 1's programs: the bench's and the port's test programs (the
     program text only)."""
@@ -1435,6 +1669,8 @@ def main() -> int:
         sharded = phase11(card, tmp)
         phase12(card, tmp, race_io)
         phase13(card, tmp)
+        phase14(card, tmp)
+        phase15(card, tmp)
     main_path["max_abs_err"] = max(worst, main_path["max_abs_err"])
     kernels = [
         dict(name="turbo_step_kernel", source=KERNEL_SRC,

@@ -30,11 +30,10 @@ device modules by ``_shared``, and re-implements what touched JAX:
   with its exact host ring, and the ``--engine device`` entry point.
 
 Every program the turbo planner accepts runs on the turbo engine, lists
-and parallel thread lanes included; a value that outgrows its slot raises
-``NotPorted`` (promotion to a wider sibling batch is not ported yet). A
-program the planner rejects (``NotTurbo``) runs on the general engine,
-which has 19 of the 30 opcodes; one holding another opcode raises
-``NotPorted`` naming it.
+and parallel thread lanes included; an instance whose value outgrows its
+slot moves to a sibling batch 4x wider, and one that outgrows that too
+escapes to one batch of the general engine. A program the planner rejects
+(``NotTurbo``) runs on the general engine, which has all 30 opcodes.
 """
 
 __version__ = "0.1.0"

@@ -110,14 +110,14 @@ async def run_chat(
     # the JAX package's opt-in batch filter path (one device kernel call,
     # ops/filter_kernel.py, for unvoiced, choice-free chats) is not carried
     # over: with the flag set the port refuses instead of filtering on the
-    # host behind the caller's back (ROADMAP Queue 1 item 12)
+    # host behind the caller's back (ROADMAP Queue 1, not carried)
     device_filters = (_os.environ.get("IE_TPU_DEVICE_FILTERS") == "1"
                       and choices_list is None and not voice_path)
     if device_filters:
         from ..vm.turbo_tables import NotPorted
         raise NotPorted("IE_TPU_DEVICE_FILTERS=1: the device chat filter "
                         "(ops/filter_kernel.py) is not ported (ROADMAP "
-                        "Queue 1 item 12, filter_kernel)")
+                        "Queue 1, not carried: filter_kernel)")
     try:
         if choices_list is None:
             hide = InvertedFilter(hide_start_str, hide_stop_str)

@@ -311,7 +311,7 @@ def _has_only_enum_chars(buf, length) -> torch.Tensor:
     return (_is_any(buf, _ENUM) | (pos >= length[:, None])).all(dim=1)
 
 
-def _on(rows: torch.Tensor, fn, *args):
+def on_rows(rows: torch.Tensor, fn, *args):
     """fn on the rows where ``rows`` holds, scattered back into zeros (the
     rows outside are never read)."""
     idx = rows.nonzero()[:, 0]
@@ -354,9 +354,9 @@ def _paren_step(st, buf, length, cfg):
     called = proceed & ~is_plain
     minmax = (fn == _FN_MIN) | (fn == _FN_MAX)
     want_max = fn == _FN_MAX
-    enum = _on(called & minmax & is_enum, _eval_enum_minmax, inner_buf,
+    enum = on_rows(called & minmax & is_enum, _eval_enum_minmax, inner_buf,
                inner_len, want_max)
-    listed = _on(called & minmax & ~is_enum,
+    listed = on_rows(called & minmax & ~is_enum,
                  lambda s, b, ln, w: _eval_list_minmax(s, b, ln, w, cfg),
                  st, inner_buf, inner_len, want_max)
 
@@ -367,7 +367,7 @@ def _paren_step(st, buf, length, cfg):
                                       ERR_OK))
         return EvalResult(err.to(torch.int32), res.pool_len)
 
-    size = _on(called & (fn == _FN_LENGTH), length_of, st, inner_buf,
+    size = on_rows(called & (fn == _FN_LENGTH), length_of, st, inner_buf,
                inner_len)
 
     fn_err = torch.where(fn == _FN_LENGTH, size.err,

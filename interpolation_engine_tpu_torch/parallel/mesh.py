@@ -15,7 +15,8 @@ its device (the step kernel takes no views): ``regs`` and ``out`` split on
 axis 0, ``sbuf`` and ``meta`` on axis 1, their instance axis.
 
 The general engine's ``shard_batch``, ``replicate`` and
-``batched_run_sharded`` are not here yet (ROADMAP Queue 1, item 11).
+``batched_run_sharded`` are not here yet (ROADMAP Queue 1, the general
+engine over a mesh).
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ XLA's compile time.
 
 ``run_program_on_device`` runs a ``host_only`` program on the host engine,
 every program the turbo planner accepts on the turbo engine, and a program
-the planner rejects (``NotTurbo``) on the general engine. A program with an
-opcode the general engine does not have yet raises ``NotPorted``.
+the planner rejects (``NotTurbo``) on the general engine, which has every
+opcode. The turbo engine also hands its escapes (instances no turbo batch
+can hold) to one ``DeviceRunner`` that shares its LaneRing.
 """
 
 from __future__ import annotations
@@ -41,11 +42,21 @@ RUNNING, PARKED = vm_config.RUNNING, vm_config.PARKED
 class DeviceRunner:
     """Run one compiled program over a batch of instances on ``device``
     (a CUDA device runs the brace scan's kernel, the CPU its plain
-    version)."""
+    version).
+
+    ``lanering`` is a LaneRing to share: the turbo engine that escapes
+    instances into this runner passes its own, so their lanes' IO in
+    flight survives the move. ``instance_ids`` are the global instance ids
+    of the batch rows (the row itself by default), the shared LaneRing's
+    keys; this runner sweeps and cancels the pending IO of its own ids
+    only. ``io_factory`` still takes the row."""
 
     def __init__(self, compiled, cfg=None, io_factory: Callable = None, *,
-                 device):
+                 device, lanering=None, instance_ids=None):
         self.compiled = compiled
+        self.instance_ids = list(instance_ids) if instance_ids else None
+        self._row_index = None if self.instance_ids is None else {
+            gid: row for row, gid in enumerate(self.instance_ids)}
         self.cfg = cfg or vm_config.VMConfig()
         self.device = torch.device(device)
         self.step = GeneralStep(compiled, self.cfg, self.device)
@@ -56,8 +67,8 @@ class DeviceRunner:
             raise ValueError(
                 f"program spawns {compiled.needs_threads} parallel threads "
                 f"but cfg.max_threads={self.cfg.max_threads}")
-        # the row is the LaneRing's instance id
-        self._lanering = lanering_mod.LaneRing(compiled)
+        self._lanering = lanering if lanering is not None \
+            else lanering_mod.LaneRing(compiled)
         # capacity-cliff telemetry: how often programs outgrow the
         # VMConfig limits and go through the ring. ring_ms is the wall time
         # of the ring rounds (gather, host service overlapped with the
@@ -115,6 +126,31 @@ class DeviceRunner:
 
     # ---- host ring ----------------------------------------------------------
 
+    def _gid(self, row: int) -> int:
+        """Global instance id of a batch row, the LaneRing's key."""
+        return self.instance_ids[row] if self.instance_ids else row
+
+    def _row_of(self, gid: int, n: int):
+        """Batch row of a global id, or None when this runner does not own
+        it (a sibling engine's pending IO is not swept here)."""
+        if self._row_index is not None:
+            return self._row_index.get(gid)
+        return gid if 0 <= gid < n else None
+
+    async def _sweep_pending(self, epochs: np.ndarray,
+                             status: np.ndarray) -> None:
+        """Cancel the host IO of this runner's finished parallel blocks: a
+        race won on the device bumps the row's par_epoch, and the losers'
+        IO must go (the reference cancels after FIRST_COMPLETED)."""
+        for gid in list(self._lanering.pending):
+            row = self._row_of(gid, len(status))
+            pend = self._lanering.pending.get(gid)
+            if row is None or pend is None:
+                continue
+            if int(epochs[row]) != pend["epoch"] or \
+                    status[row] not in (RUNNING, PARKED):
+                await self._lanering.cancel(gid)
+
     def _runtime_for(self, i: int, rts: dict):
         return rts.setdefault(i, executor.Runtime(
             self.io_factory(i),
@@ -161,7 +197,7 @@ class DeviceRunner:
             "par_epoch": int(st["par_epoch"]),
         }
         rt = self._runtime_for(i, rts)
-        res = await self._lanering.service(rt, i, view)
+        res = await self._lanering.service(rt, self._gid(i), view)
         if res == "parked":
             return st
         state, counters = view["state"], view["counters"]
@@ -234,10 +270,8 @@ class DeviceRunner:
             status = self._host(batch.status)
             self.total_device_steps += inner_steps
             if self._lanering.pending:
-                # a race won on the device bumps par_epoch: the losers'
-                # host IO must be cancelled
-                await self._lanering.sweep(self._host(batch.par_epoch),
-                                           status, (RUNNING, PARKED))
+                await self._sweep_pending(self._host(batch.par_epoch),
+                                          status)
             parked = np.nonzero(status == PARKED)[0]
             if len(parked) == 0:
                 if not (status == RUNNING).any():
@@ -289,7 +323,9 @@ class DeviceRunner:
                 await asyncio.sleep(0.05)
             else:
                 stalled_rounds = 0
-        await self._lanering.cancel_all()
+        for gid in list(self._lanering.pending):
+            if self._row_of(gid, batch.n) is not None:
+                await self._lanering.cancel(gid)
         s = self.ring_stats
         events.EVENTS.emit(events.VM_STATS, engine="general",
                            rounds=s["rounds"], parks=s["parks"],

@@ -14,9 +14,13 @@ Error policy as in the JAX package: a handler that meets anything it does
 not do exactly parks the row (PARK_HOST_OP) and the host ring re-executes
 the original task.
 
-19 of the 30 opcodes are ported (``PORTED``). A program holding any other
-(``DEFERRED``) raises ``NotPorted`` when its step is built; nothing parks in
-its place. A ``list_slice`` bound that is a string at run time is
+Every one of the 30 opcodes has its handler. The JAX handlers' loops become
+Python loops: a ``fori_loop`` over a static bound loops to that bound (or to
+the largest count among the rows), masked per row; a ``while_loop`` loops
+to ``max_fix`` with a per-row ``done`` mask. Work whose result a row never
+reads (a capture staging for an entry that did not match, a math
+evaluation behind an earlier error) runs on the rows that read it only.
+``math`` and a ``list_slice`` bound that is a string at run time are
 evaluated by the byte math evaluator (``ops/math_kernel.py``), as in JAX.
 """
 
@@ -34,28 +38,20 @@ from ..ops.interp_kernel import (ERR_ASSERT, ERR_CAPACITY, ERR_HOST,
 from . import bytestr as bs
 from .state import (T_INT, T_LIST, T_STR, VMBatch, arena_write, find_slot,
                     fnv1a, gather_slot, masked_slot_update, store_set)
-from .turbo_tables import NotPorted
 
 RUNNING, DONE, PARKED = vm_config.RUNNING, vm_config.DONE, vm_config.PARKED
 T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = (
     vm_config.T_FREE, vm_config.T_NEW, vm_config.T_READY, vm_config.T_WAIT,
     vm_config.T_DONE)
 
-PORTED = frozenset({
-    isa.OP_HALT, isa.OP_NOP, isa.OP_GOTO, isa.OP_SLEEP, isa.OP_CLEAR,
-    isa.OP_PRINT_LIT, isa.OP_PRINT, isa.OP_SET, isa.OP_SET_LN,
-    isa.OP_MATH_RPN, isa.OP_MATH_RPN_LN, isa.OP_GOTO_MAP_LIT, isa.OP_PARK,
-    isa.OP_LIST_APPEND, isa.OP_LIST_SLICE, isa.OP_FOR_HEAD, isa.OP_FOR_NEXT,
-    isa.OP_PAR_BEGIN, isa.OP_THREAD_END})
-# in the order ROADMAP Queue 1 item 9 ports them
-DEFERRED = (isa.OP_UNESCAPE, isa.OP_GOTO_MAP, isa.OP_MATH, isa.OP_LIST_JOIN,
-            isa.OP_LIST_CONCAT, isa.OP_LIST_REMOVE, isa.OP_LIST_INDEX,
-            isa.OP_REPLACE_MAP, isa.OP_DELETE, isa.OP_DELETE_EXCEPT,
-            isa.OP_RANDOM_CHOICE)
 RPN_LEAF_KEYS = (isa.RPN_HOLE, isa.RPN_LENGTH, isa.RPN_MINLIST,
                  isa.RPN_MAXLIST)
 STACK = 8
 BIG = 2 ** 31 - 1
+MAX_CONCAT = 8        # list_concat's lists
+MAX_REPLACE = 16      # replace_map's entries
+MAX_WILDCARDS = 12    # delete's and delete_except's wildcards
+LCG_MUL, LCG_ADD = 1664525, 1013904223   # random_choice's uint32 LCG
 
 
 # a resolved operand: the interpolation kernel's tagged union
@@ -90,18 +86,22 @@ def used_opcodes(compiled) -> frozenset:
         np.asarray(compiled.code, np.int32).reshape(-1, 4)[:, 0]))
 
 
-def check_ported(compiled) -> None:
-    """Raise NotPorted naming the first deferred opcode the program holds."""
-    ops = used_opcodes(compiled)
-    for op in DEFERRED:
-        if op in ops:
-            raise NotPorted(f"opcode {isa.OP_NAMES[op]!r} is not ported to "
-                            f"the general engine yet (ROADMAP Queue 1, "
-                            f"item 9)")
-
-
 def _w(c, a, b) -> torch.Tensor:
     return torch.where(c, a, b).to(torch.int32)
+
+
+def _pick(mask: torch.Tensor, a: Value, b: Value) -> Value:
+    """Per row, the value ``a`` where mask else ``b``."""
+    return Value(*(torch.where(mask[:, None] if x.dim() == 2 else mask, x,
+                               y.to(x.dtype)) for x, y in zip(a, b)))
+
+
+def _hard(err, verr) -> torch.Tensor:
+    """An interpolation's error other than a missing key, then its
+    ``value_to_bytes`` error where no key was missing."""
+    missing = err == ERR_MISSING
+    return _w((err != ERR_OK) & ~missing, err,
+              _w(~missing & (verr != ERR_OK), verr, ERR_OK))
 
 
 def select(mask: torch.Tensor, new: VMBatch, old: VMBatch) -> VMBatch:
@@ -123,7 +123,6 @@ class GeneralStep:
     ``run(batch, n)`` runs n steps. Neither changes its input."""
 
     def __init__(self, compiled, cfg, device):
-        check_ported(compiled)
         self.cfg = cfg
         self.device = torch.device(device)
         t = pack_tables(compiled)
@@ -150,6 +149,7 @@ class GeneralStep:
         null = np.zeros((ms,), np.uint8)
         null[:4] = np.frombuffer(b"NULL", np.uint8)[:ms]
         self._null = null
+        self._null_t = torch.from_numpy(null).to(dev)
         ops = used_opcodes(compiled)
         # the lane yield only exists in programs that can enter a
         # parallel block (the JAX jit step's specialisation)
@@ -161,13 +161,25 @@ class GeneralStep:
             isa.OP_PRINT: self.h_print,
             isa.OP_SET: lambda st, a, b, c: self.h_set(st, a, False),
             isa.OP_SET_LN: lambda st, a, b, c: self.h_set(st, a, True),
+            isa.OP_UNESCAPE: self.h_unescape, isa.OP_MATH: self.h_math,
             isa.OP_MATH_RPN:
                 lambda st, a, b, c: self.h_math_rpn(st, a, False),
             isa.OP_MATH_RPN_LN:
                 lambda st, a, b, c: self.h_math_rpn(st, a, True),
+            isa.OP_GOTO_MAP: self.h_goto_map,
             isa.OP_GOTO_MAP_LIT: self.h_goto_map_lit, isa.OP_PARK: self.h_park,
             isa.OP_LIST_APPEND: self.h_list_append,
             isa.OP_LIST_SLICE: self.h_list_slice,
+            isa.OP_LIST_JOIN: self.h_list_join,
+            isa.OP_LIST_CONCAT: self.h_list_concat,
+            isa.OP_LIST_REMOVE: self.h_list_remove,
+            isa.OP_LIST_INDEX: self.h_list_index,
+            isa.OP_REPLACE_MAP: self.h_replace_map,
+            isa.OP_DELETE:
+                lambda st, a, b, c: self.h_delete(st, a, b, False),
+            isa.OP_DELETE_EXCEPT:
+                lambda st, a, b, c: self.h_delete(st, a, b, True),
+            isa.OP_RANDOM_CHOICE: self.h_random_choice,
             isa.OP_FOR_HEAD: self.h_for_head, isa.OP_FOR_NEXT: self.h_for_next,
             isa.OP_PAR_BEGIN: self.h_par_begin,
             isa.OP_THREAD_END: self.h_thread_end,
@@ -197,6 +209,11 @@ class GeneralStep:
             row = self._tmpl_cache[key] = torch.from_numpy(buf).to(
                 self.device)[None, :]
         return row.expand(n, -1), bs.col(ln, n, self.device)
+
+    def _is_null(self, off: int, ln: int) -> bool:
+        """The constant template at (off, ln) is the ``NULL`` key."""
+        buf, _ = self._tmpl_np(off, ln)
+        return ln == 4 and bool((buf == self._null).all())
 
     def zeros(self, n: int) -> torch.Tensor:
         return self._zero.expand(n, -1)
@@ -408,6 +425,27 @@ class GeneralStep:
                           torch.where(val.err != ERR_OK, val.err, serr))
         return self.advance(st, err, st3)
 
+    def h_unescape(self, st, a, b, c):
+        """A string template interpolates (task level), unescapes its
+        braces and interpolates again; a first result that is no string
+        passes through untouched. An int literal stores directly; any other
+        kind defers to the host."""
+        nbuf, nlen, nerr = self.interp_name(st, self.axu(a), self.axu(a + 1))
+        kind, x, y = self.axu(a + 2), self.axu(a + 3), self.axu(a + 4)
+        if kind == isa.VK_STR:
+            first = self.interp_tmpl(st, x, y)
+            ubuf, ulen = bs.unescape_braces(first.buf, first.length)
+            second = ik.interpolate(st, ubuf, ulen, self.cfg)
+            second = second._replace(err=_w(first.err != ERR_OK, first.err,
+                                            second.err))
+            val = _pick(first.vtype == T_STR, second, first)
+        elif kind == isa.VK_INT:
+            val = self.value(st.n, vtype=T_INT, vint=x)
+        else:
+            return self.advance(st, _w(nerr != ERR_OK, nerr, ERR_HOST), st)
+        st3, serr = self.set_value(st, nbuf, nlen, val)
+        return self.advance(st, self._first_err(nerr, val.err, serr), st3)
+
     def _resolve_label(self, scope_id: int, name_buf, name_len, own_pc):
         """Dynamic label lookup; CONTINUE goes to own_pc + 1. The hash hit
         is byte-checked against the label's own name."""
@@ -434,9 +472,7 @@ class GeneralStep:
         scope_id = self.axu(a + 2)
         tbuf, tlen, tverr = ik.value_to_bytes(text_r, cfg.max_str)
         interp_error = text_r.err == ERR_MISSING
-        hard_err = torch.where(
-            (text_r.err != ERR_OK) & ~interp_error, text_r.err,
-            torch.where(~interp_error & (tverr != ERR_OK), tverr, ERR_OK))
+        hard_err = _hard(text_r.err, tverr)
         matched = torch.zeros(n, dtype=torch.bool, device=self.device)
         tgt_off = tgt_len = self.i32(0, n)
         null_off = null_len = 0
@@ -445,8 +481,7 @@ class GeneralStep:
         for e in range(min(b, 32)):
             base = a + 3 + 5 * e
             koff, kln = self.axu(base), self.axu(base + 1)
-            kbuf_np, _ = self._tmpl_np(koff, kln)
-            is_null = kln == 4 and bool((kbuf_np == self._null).all())
+            is_null = self._is_null(koff, kln)
             kbuf, klen = self.tmpl(koff, kln, 1)
             m = mk.wildcard_match(kbuf, klen, tbuf, tlen, cfg.max_stars)
             hit = m.ok & ~matched & ~interp_error
@@ -473,6 +508,54 @@ class GeneralStep:
                             (use_null & (not has_null))
                             | (~use_null & ~matched) | (jump < 0),
                             ERR_ASSERT, ERR_OK)))
+        return self.advance(st, err, st, jump_pc=jump)
+
+    def h_goto_map(self, st, a, b, c):
+        """goto_map with template keys or targets: every key and every
+        target interpolates, matched or not (an error in an entry never
+        chosen still decides the result); the first wildcard match wins,
+        and the first NULL entry where the text has a missing key."""
+        cfg, n = self.cfg, st.n
+        text_r = self.interp_tmpl(st, self.axu(a), self.axu(a + 1))
+        scope_id = self.axu(a + 2)
+        tbuf, tlen, tverr = ik.value_to_bytes(text_r, cfg.max_str)
+        interp_error = text_r.err == ERR_MISSING
+        hard_err = _hard(text_r.err, tverr)
+        matched = torch.zeros(n, dtype=torch.bool, device=self.device)
+        has_null = torch.zeros_like(matched)
+        tgt_buf = null_buf = self.zeros(n)
+        tgt_len = null_len = self.i32(0, n)
+        loop_err = self.i32(ERR_OK, n)
+        for e in range(min(b, 32)):
+            base = a + 3 + 5 * e
+            kbuf, klen, kerr = self.value_as_str(
+                self.interp_tmpl(st, self.axu(base), self.axu(base + 1)))
+            vbuf, vlen, verr = self.value_as_str(
+                self.interp_tmpl(st, self.axu(base + 2), self.axu(base + 3)))
+            is_null = bs.equal(kbuf, klen, self._null_t, 4)
+            m = mk.wildcard_match(kbuf, klen, tbuf, tlen, cfg.max_stars)
+            hit = m.ok & ~matched & ~interp_error
+            loop_err = _w(loop_err == ERR_OK,
+                          self._first_err(kerr, verr, _w(~m.supported,
+                                                         ERR_HOST, ERR_OK)),
+                          loop_err)
+            tgt_buf = torch.where(hit[:, None], vbuf, tgt_buf)
+            tgt_len = _w(hit, vlen, tgt_len)
+            matched = matched | hit
+            first_null = is_null & ~has_null
+            null_buf = torch.where(first_null[:, None], vbuf, null_buf)
+            null_len = _w(first_null, vlen, null_len)
+            has_null = has_null | is_null
+        if b > 32:
+            loop_err = self.i32(ERR_HOST, n)
+        use_null = interp_error
+        jump, _ = self._resolve_label(
+            scope_id, torch.where(use_null[:, None], null_buf, tgt_buf),
+            _w(use_null, null_len, tgt_len), st.pc)
+        err = self._first_err(
+            hard_err, loop_err,
+            _w((use_null & ~has_null) | (~use_null & ~matched) | (jump < 0),
+               ERR_ASSERT, ERR_OK))
         return self.advance(st, err, st, jump_pc=jump)
 
     def _list_reduce(self, st, looked, want_max: bool):
@@ -582,24 +665,52 @@ class GeneralStep:
                           torch.where(err != ERR_OK, err, seterr))
         return self.advance(st, err, st2)
 
-    def _copy_list_span(self, st: VMBatch, src_base, count):
+    def h_math(self, st, a, b, c):
+        """Math the compiler could not lower to RPN: the task-level
+        interpolation, the evaluator's own second interpolation, then the
+        byte math evaluator (``ops/math_kernel.py``, with Python's floor
+        ``//`` and ``%`` and the int32 wrap), on the rows without an error
+        so far; the int result is stored."""
+        cfg = self.cfg
+        first = self.interp_tmpl(st, self.axu(a), self.axu(a + 1))
+        fbuf, flen, ferr = self.value_as_str(first)
+        sbuf, slen, serr = self.value_as_str(
+            ik.interpolate(st, fbuf, flen, cfg))
+        res = mak.on_rows((ferr == ERR_OK) & (serr == ERR_OK),
+                      lambda s, bf, ln: mak.eval_math_bytes(s, bf, ln, cfg),
+                      st, sbuf, slen)
+        nbuf, nlen, nerr = self.interp_name(st, self.axu(a + 2),
+                                            self.axu(a + 3))
+        st2, seterr = self.set_value(st, nbuf, nlen, self.value(
+            st.n, vtype=T_INT, vint=res.value))
+        return self.advance(st, self._first_err(ferr, serr, res.err, nerr,
+                                                seterr), st2)
+
+    def _copy_list_span(self, st: VMBatch, src_base, count, skip_idx=None):
         """Copy pool descriptors [src_base, src_base + count) to the pool
-        top; returns (st', new_base, new_count, err)."""
+        top, leaving out index ``skip_idx`` of the span where it lies in
+        it; returns (st', new_base, new_count, err)."""
         cfg = self.cfg
         L = cfg.pool_size
         dst_base = st.pool_top
         count = bs.col(count, st.n, self.device)
         j = bs.positions(L, self.device)[None, :] - dst_base[:, None]
-        src = (src_base[:, None] + j).clamp(0, L - 1).long()
-        valid = (j >= 0) & (j < count[:, None])
+        out_count, shift = count, 0
+        if skip_idx is not None:
+            has_skip = (skip_idx >= 0) & (skip_idx < count)
+            shift = (has_skip[:, None] & (j >= skip_idx[:, None])).to(
+                torch.int32)
+            out_count = count - has_skip.to(torch.int32)
+        src = (src_base[:, None] + j + shift).clamp(0, L - 1).long()
+        valid = (j >= 0) & (j < out_count[:, None])
         st = st._replace(**{
             f: torch.where(valid, torch.gather(getattr(st, f), 1, src),
                            getattr(st, f))
             for f in ("pool_type", "pool_int", "pool_off", "pool_len")})
-        overflow = dst_base + count > L
+        overflow = dst_base + out_count > L
         err = _w(count > cfg.max_list, ERR_HOST,
                  _w(overflow, ERR_CAPACITY, ERR_OK))
-        n_written = _w(overflow, 0, count)
+        n_written = _w(overflow, 0, out_count)
         st = st._replace(pool_top=_w(err == ERR_OK, dst_base + n_written,
                                      st.pool_top))
         return st, dst_base, n_written, err
@@ -695,6 +806,313 @@ class GeneralStep:
         st3, seterr = self.set_value(st2, nbuf, nlen, val)
         err = self._first_err(lerr, ferr, terr, zero_err, cerr, nerr, seterr)
         return self.advance(st, err, st3)
+
+    def _span_bound(self, count: torch.Tensor) -> int:
+        """The static loop bound ``max_list`` cut to the largest count among
+        the rows (the iterations past it are masked off in every row)."""
+        if count.numel() == 0:
+            return 0
+        return min(self.cfg.max_list, max(0, int(count.max())))
+
+    def h_list_join(self, st, a, b, c):
+        """before + the string elements joined by between + after; an int
+        element or more than max_list elements defers to the host."""
+        cfg, n = self.cfg, st.n
+        ms = cfg.max_str
+        st1, lbase, lcnt, lerr = self.resolve_list_operand(st, a)
+        parts = [self.interp_tmpl(st1, self.axu(a + k), self.axu(a + k + 1))
+                 for k in (3, 5, 7)]
+        (bbuf, blen, berr), (tbuf, tlen, terr), (abuf, alen, aerr) = [
+            ik.value_to_bytes(r, ms) for r in parts]
+        strerr = self._first_err(*(r.err for r in parts), berr, terr, aerr)
+        buf, ln, join_err = self.zeros(n), self.i32(0, n), self.i32(ERR_OK, n)
+        for i in range(self._span_bound(lcnt)):
+            ev = self.pool_elem_value(st1, lbase + i)
+            buf2, ln2, ov1 = bs.concat(buf, ln, tbuf, tlen if i else 0, ms)
+            buf3, ln3, ov2 = bs.concat(buf2, ln2, ev.buf, ev.length, ms)
+            step_err = _w(ev.vtype != T_STR, ERR_HOST,
+                          _w(ov1 | ov2, ERR_CAPACITY, ERR_OK))
+            do = (i < lcnt) & (join_err == ERR_OK)
+            buf = torch.where(do[:, None], buf3, buf)
+            ln = _w(do, ln3, ln)
+            join_err = _w(do & (step_err != ERR_OK), step_err, join_err)
+        join_err = _w(lcnt > cfg.max_list, ERR_HOST, join_err)
+        out1, l1, ov1 = bs.concat(bbuf, blen, buf, ln, ms)
+        out2, l2, ov2 = bs.concat(out1, l1, abuf, alen, ms)
+        nbuf, nlen, nerr = self.interp_name(st1, self.axu(a + 9),
+                                            self.axu(a + 10))
+        st2, seterr = self.set_value(st1, nbuf, nlen,
+                                     self.value(n, buf=out2, length=l2))
+        err = self._first_err(lerr, strerr, join_err,
+                              _w(ov1 | ov2, ERR_CAPACITY, ERR_OK), nerr,
+                              seterr)
+        return self.advance(st, err, st2)
+
+    @staticmethod
+    def _values_equal(ev: Value, item: Value) -> torch.Tensor:
+        both_int = (ev.vtype == T_INT) & (item.vtype == T_INT)
+        both_str = (ev.vtype == T_STR) & (item.vtype == T_STR)
+        return (both_int & (ev.vint == item.vint)) | (both_str & bs.equal(
+            ev.buf, ev.length, item.buf, item.length))
+
+    def h_list_remove(self, st, a, b, c):
+        """A copy of the list without its first element equal to the item
+        (type-exact); an absent item leaves a plain copy."""
+        st1, lbase, lcnt, lerr = self.resolve_list_operand(st, a)
+        item, _ = self.resolve_vspec(st1, a + 3)
+        item_err = _w(item.vtype == T_LIST, ERR_HOST, item.err)
+        found = self.i32(-1, st.n)
+        for i in range(self._span_bound(lcnt)):
+            eq = (i < lcnt) & self._values_equal(
+                self.pool_elem_value(st1, lbase + i), item) & (found < 0)
+            found = _w(eq, i, found)
+        st2, new_base, new_cnt, cerr = self._copy_list_span(
+            st1, lbase, lcnt, skip_idx=_w(found < 0, -999, found))
+        nbuf, nlen, nerr = self.interp_name(st2, self.axu(a + 6),
+                                            self.axu(a + 7))
+        st3, seterr = self.set_value(st2, nbuf, nlen, self.value(
+            st.n, vtype=T_LIST, pool_off=new_base, pool_len=new_cnt))
+        return self.advance(st, self._first_err(lerr, item_err, cerr, nerr,
+                                                seterr), st3)
+
+    def h_list_concat(self, st, a, b, c):
+        """The lists copied one after another to the pool top (at most
+        MAX_CONCAT). As in JAX, the state of a list that fails is kept with
+        the lists before it (the handler's error then discards it all)."""
+        n = st.n
+        nbuf, nlen, nerr = self.interp_name(st, self.axu(a), self.axu(a + 1))
+        dst_base = st.pool_top
+        st_c, total, err = st, self.i32(0, n), self.i32(ERR_OK, n)
+        for li in range(min(b, MAX_CONCAT)):
+            st1, lb, lc, lerr = self.resolve_list_operand(st_c, a + 2 + 3 * li)
+            st2, _, copied, cerr = self._copy_list_span(st1, lb, lc)
+            step_err = _w(lerr != ERR_OK, lerr, cerr)
+            do = err == ERR_OK
+            st_c = select(do, st2, st_c)
+            total = _w(do & (step_err == ERR_OK), total + copied, total)
+            err = _w(do & (step_err != ERR_OK), step_err, err)
+        if b > MAX_CONCAT:
+            err = self.i32(ERR_HOST, n)
+        st2, seterr = self.set_value(st_c, nbuf, nlen, self.value(
+            n, vtype=T_LIST, pool_off=dst_base, pool_len=total))
+        return self.advance(st, self._first_err(nerr, err, seterr), st2)
+
+    def h_list_index(self, st, a, b, c):
+        """The 1-based element (negative from the end); index 0 or past
+        either end is ERR_ASSERT; a string index parses as a decimal int."""
+        st1, lbase, lcnt, lerr = self.resolve_list_operand(st, a)
+        idx_val, _ = self.resolve_vspec(st1, a + 3)
+        parsed, parse_ok = bs.bytes_to_int(idx_val.buf, idx_val.length)
+        index = _w(idx_val.vtype == T_INT, idx_val.vint, parsed)
+        idx_err = _w(idx_val.err != ERR_OK, idx_val.err,
+                     _w(((idx_val.vtype == T_STR) & ~parse_ok)
+                        | (idx_val.vtype == T_LIST), ERR_HOST, ERR_OK))
+        py_idx = _w(index > 0, index - 1, _w(index < 0, lcnt + index, -1))
+        bounds_err = _w((index == 0) | (py_idx < 0) | (py_idx >= lcnt),
+                        ERR_ASSERT, ERR_OK)
+        ev = self.pool_elem_value(st1, lbase + py_idx)
+        nbuf, nlen, nerr = self.interp_name(st1, self.axu(a + 6),
+                                            self.axu(a + 7))
+        st2, seterr = self.set_value(st1, nbuf, nlen, ev)
+        return self.advance(st, self._first_err(lerr, idx_err, bounds_err,
+                                                nerr, seterr), st2)
+
+    def h_random_choice(self, st, a, b, c):
+        """An element chosen by the JAX package's uint32 LCG (not Python's
+        generator): rng' = rng * 1664525 + 1013904223 mod 2^32, index
+        (rng' >> 8) % count; the new rng commits with the store."""
+        st1, lbase, lcnt, lerr = self.resolve_list_operand(st, a)
+        rng = (st.rng * LCG_MUL + LCG_ADD) & bs.M32
+        idx = torch.where(lcnt > 0, (rng >> 8) % lcnt.clamp(min=1).long(), 0)
+        ev = self.pool_elem_value(st1, lbase + idx.to(torch.int32))
+        nbuf, nlen, nerr = self.interp_name(st1, self.axu(a + 3),
+                                            self.axu(a + 4))
+        st2, seterr = self.set_value(st1, nbuf, nlen, ev)
+        err = self._first_err(lerr, _w(lcnt == 0, ERR_ASSERT, ERR_OK), nerr,
+                              seterr)
+        return self.advance(st, err, st2._replace(rng=rng))
+
+    # ---- replace_map ------------------------------------------------------
+
+    def _stage_captures(self, st: VMBatch, subj, m) -> VMBatch:
+        """A temporary store holding a match's captures under the keys
+        '1'..'9'. The arena and slot overflow flags of the staging are
+        ignored, as the JAX step ignores them."""
+        cfg = self.cfg
+        for ci in range(cfg.max_stars):
+            clen = m.cap_len[:, ci]
+            cbuf, _ = bs.substring(subj, m.cap_off[:, ci], clen, cfg.max_str)
+            st2, coff, _ = arena_write(st, cbuf, clen, cfg)
+            digit = torch.zeros((st.n, cfg.max_key), dtype=torch.uint8,
+                                device=self.device)
+            digit[:, 0] = 49 + ci
+            st3, _ = store_set(st2, digit, 1, T_STR, 0, coff, clen, cfg)
+            st = select(ci < m.n_caps, st3, st)
+        return st
+
+    def _replace_round(self, st: VMBatch, cur_buf, cur_len, a: int, b: int):
+        """One round of replace_map on the rows of st: the current string
+        interpolated again, then the first entry whose interpolated key
+        matches it gives the new string, its value interpolated against the
+        match's captures. Returns (buf, len, missing, hard error)."""
+        cfg, n = self.cfg, st.n
+        ms = cfg.max_str
+        r = ik.interpolate(st, cur_buf, cur_len, cfg)
+        rbuf, rlen, rverr = ik.value_to_bytes(r, ms)
+        missing = r.err == ERR_MISSING
+        hard = _hard(r.err, rverr)
+        matched = torch.zeros_like(missing)
+        out_buf, out_len = rbuf, rlen
+        e_missing = torch.zeros_like(missing)
+        e_hard = self.i32(ERR_OK, n)
+        for e in range(min(b, MAX_REPLACE)):
+            base = a + 6 + 4 * e
+            key_r = self.interp_tmpl(st, self.axu(base), self.axu(base + 1))
+            kbuf, klen, kverr = ik.value_to_bytes(key_r, ms)
+            k_missing = key_r.err == ERR_MISSING
+            k_hard = _hard(key_r.err, kverr)
+            m = mk.wildcard_match(kbuf, klen, rbuf, rlen, cfg.max_stars)
+            hit = ~matched & m.ok & ~k_missing & (k_hard == ERR_OK)
+            # the value only matters where the entry matched
+            vbuf, vlen = self.zeros(n), self.i32(0, n)
+            v_missing, v_hard = torch.zeros_like(hit), self.i32(ERR_OK, n)
+            rows = hit.nonzero()[:, 0]
+            if rows.numel():
+                sub_m = mk.MatchResult(*(t.index_select(0, rows) for t in m))
+                caps = self._stage_captures(st.take(rows),
+                                            rbuf.index_select(0, rows), sub_m)
+                val_r = self.interp_tmpl(caps, self.axu(base + 2),
+                                         self.axu(base + 3))
+                vb, vl, vv = ik.value_to_bytes(val_r, ms)
+                vbuf = vbuf.index_copy(0, rows, vb)
+                vlen = vlen.index_copy(0, rows, vl)
+                v_missing = v_missing.index_copy(0, rows,
+                                                 val_r.err == ERR_MISSING)
+                v_hard = v_hard.index_copy(0, rows, _hard(val_r.err, vv))
+            use = hit & ~v_missing & (v_hard == ERR_OK)
+            out_buf = torch.where(use[:, None], vbuf, out_buf)
+            out_len = _w(use, vlen, out_len)
+            e_missing = e_missing | (~matched & k_missing) | (hit & v_missing)
+            e_hard = _w((e_hard == ERR_OK) & ~matched,
+                        self._first_err(k_hard, _w(~m.supported, ERR_HOST,
+                                                   ERR_OK),
+                                        _w(hit, v_hard, ERR_OK)), e_hard)
+            matched = matched | hit
+        over = ERR_HOST if b > MAX_REPLACE else ERR_OK
+        return (out_buf, out_len, missing | e_missing,
+                self._first_err(hard, e_hard, self.i32(over, n)))
+
+    def h_replace_map(self, st, a, b, c):
+        """Wildcard replacement, in rounds: each round re-interpolates the
+        current string and applies the first matching entry (at most
+        MAX_REPLACE). It stops on a stable string, after one round unless
+        ``repeat``, on a missing key or an error, or at ``max_fix`` rounds
+        (not converged: the host). A missing key takes the raw value of the
+        first NULL entry (none: ERR_ASSERT); an int item passes through."""
+        cfg, n = self.cfg, st.n
+        nbuf, nlen, nerr = self.interp_name(st, self.axu(a + 3),
+                                            self.axu(a + 4))
+        repeat = self.axu(a + 5) == 1
+        item, ikind = self.resolve_vspec(st, a)
+        item_hard = _w((item.err == ERR_OK) & (item.vtype == T_LIST),
+                       ERR_HOST, ERR_HOST if ikind == isa.VK_LIST else ERR_OK)
+        cur_buf, cur_len, iverr = ik.value_to_bytes(item, cfg.max_str)
+        missing = item.err == ERR_MISSING
+        hard = _w((item.err != ERR_OK) & ~missing, item.err,
+                  _w(item_hard != ERR_OK, item_hard,
+                     _w(~missing & (iverr != ERR_OK), iverr, ERR_OK)))
+        done = missing | (hard != ERR_OK)
+        iters = self.i32(0, n)
+        for _ in range(cfg.max_fix):
+            rows = (~done).nonzero()[:, 0]
+            if rows.numel() == 0:
+                break
+            whole = rows.numel() == n
+            sub = st if whole else st.take(rows)
+            cb = cur_buf if whole else cur_buf.index_select(0, rows)
+            cl = cur_len if whole else cur_len.index_select(0, rows)
+            ob, ol, r_missing, r_hard = self._replace_round(sub, cb, cl, a, b)
+            r_missing = r_missing | missing.index_select(0, rows)
+            r_hard = self._first_err(hard.index_select(0, rows), r_hard)
+            stable = bs.equal(ob, ol, cb, cl)
+            fin = stable | (not repeat) | r_missing | (r_hard != ERR_OK)
+            cur_buf = cur_buf.index_copy(0, rows, ob)
+            cur_len = cur_len.index_copy(0, rows, ol)
+            missing = missing.index_copy(0, rows, r_missing)
+            hard = hard.index_copy(0, rows, r_hard)
+            iters = iters.index_copy(0, rows, iters.index_select(0, rows) + 1)
+            done = done.index_copy(0, rows, fin)
+        hard = _w((hard == ERR_OK) & ~done & (iters >= cfg.max_fix),
+                  ERR_HOST, hard)
+        # a missing key: the raw (uninterpolated) value of the NULL entry
+        null_off = null_len = 0
+        for e in range(min(b, MAX_REPLACE)):
+            base = a + 6 + 4 * e
+            if self._is_null(self.axu(base), self.axu(base + 1)):
+                null_off, null_len = self.axu(base + 2), self.axu(base + 3)
+                break
+        else:
+            hard = _w(missing, ERR_ASSERT, hard)
+        null_buf, null_ln = self.tmpl(null_off, null_len, n)
+        use_buf = torch.where(missing[:, None], null_buf, cur_buf)
+        use_len = _w(missing, null_ln, cur_len)
+        is_int = (item.err == ERR_OK) & (item.vtype == T_INT)
+        val = self.value(n, vtype=_w(is_int, T_INT, T_STR), vint=item.vint,
+                         buf=torch.where(is_int[:, None], 0, use_buf).to(
+                             torch.uint8),
+                         length=_w(is_int, 0, use_len))
+        hard = _w(is_int, ERR_OK, hard)
+        st2, seterr = self.set_value(st, nbuf, nlen, val)
+        return self.advance(st, self._first_err(nerr, hard, seterr), st2)
+
+    # ---- delete -------------------------------------------------------------
+
+    def h_delete(self, st, a, b, keep_matching: bool):
+        """delete (keep_matching False) and delete_except: slot by slot, in
+        order, each occupied key is matched against every wildcard (at most
+        MAX_WILDCARDS), each interpolated against the store as deleted so
+        far, so a wildcard naming a key deleted at an earlier slot finds it
+        missing. A wildcard's interpolation changes only in the rows where
+        a slot was deleted, so only those rows interpolate it again."""
+        cfg, n = self.cfg, st.n
+        n_wc = min(b, MAX_WILDCARDS)
+        st_c, err = st, self.i32(ERR_OK, n)
+        wilds = [None] * n_wc
+        stale = None     # rows deleted from since the wildcards' results
+        for s in range(cfg.n_slots):
+            occ = st_c.occ[:, s]
+            if not bool(occ.any()):
+                continue
+            rows = None if stale is None else stale.nonzero()[:, 0]
+            for w in range(n_wc):
+                if stale is None:
+                    wilds[w] = self._wildcard(st_c, a + 2 * w)
+                elif rows.numel():
+                    part = self._wildcard(st_c.take(rows), a + 2 * w)
+                    wilds[w] = tuple(t.index_copy(0, rows, p)
+                                     for t, p in zip(wilds[w], part))
+            stale = torch.zeros_like(occ)
+            kbuf, klen = self._arena(st_c, st_c.key_off[:, s],
+                                     st_c.key_len[:, s])
+            any_match, werr = torch.zeros_like(occ), self.i32(ERR_OK, n)
+            for wbuf, wlen, werr2 in wilds:
+                m = mk.wildcard_match(wbuf, wlen, kbuf, klen, cfg.max_stars)
+                werr = _w(werr == ERR_OK, _w(werr2 != ERR_OK, werr2, _w(
+                    ~m.supported, ERR_HOST, ERR_OK)), werr)
+                any_match = any_match | m.ok
+            if b > MAX_WILDCARDS:
+                werr = self.i32(ERR_HOST, n)
+            gone = occ & (~any_match if keep_matching else any_match)
+            st_c = st_c._replace(occ=masked_slot_update(
+                st_c.occ, _w(gone, s, -1), False))
+            stale = gone
+            err = _w(occ & (werr != ERR_OK) & (err == ERR_OK), werr, err)
+        return self.advance(st, err, st_c)
+
+    def _wildcard(self, st: VMBatch, base: int):
+        """A delete wildcard interpolated: (buf, len, err)."""
+        return self.value_as_str(self.interp_tmpl(st, self.axu(base),
+                                                  self.axu(base + 1)))
 
     def h_for_head(self, st, a, b, c):
         cfg = self.cfg

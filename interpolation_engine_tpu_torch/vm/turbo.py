@@ -38,8 +38,10 @@ torch writes on the device), then the exact slow path for the rest, with
 lane servicing for instances parked inside a parallel block. A value that
 outgrows its slot moves the instance into one sibling batch
 ``promote_factor`` times wider, run concurrently with this one. An
-instance that even the sibling cannot hold would escape to the general
-engine in the JAX package; here that raises ``NotPorted``.
+instance that even the sibling cannot hold escapes: at the end of the run,
+every escaped instance runs in one batch of the general engine
+(``vm/driver.py`` ``DeviceRunner``) on the engine's device, sharing its
+LaneRing, IO managers and global instance ids.
 
 Step counts: the JAX fast path resumes a drained race at its join without
 the lane's thread end, one step fewer than its exact ring. Here both paths
@@ -72,8 +74,9 @@ from .._shared import lanering as lanering_mod
 from ..ops.turbo_step import (MAX_WIDTH, StepTables, sharded_turbo_step,
                               turbo_step)
 from ..parallel.mesh import ShardedTurboBatch, make_mesh, shard_turbo_batch
+from . import state as vs
 from .state import T_INT, T_LIST, T_STR
-from .turbo_tables import NotPorted, build_tables
+from .turbo_tables import build_tables
 
 NotTurbo = planner.NotTurbo
 DONE, PARKED, RUNNING = vm_config.DONE, vm_config.PARKED, vm_config.RUNNING
@@ -471,6 +474,8 @@ class TurboEngine:
         self._escape_results: dict = {}
         self._promo_tasks: list = []
         self._migrated: set = set()
+        # the general-engine runners of this run's escapes
+        self.escape_runners: list = []
         self._wide_tables = None    # the siblings' StepTables, built once
         # the vectorized fast park path (read as the JAX package reads it)
         self._fast_enabled = os.environ.get("IE_TPU_FAST_RING", "1") != "0"
@@ -520,6 +525,7 @@ class TurboEngine:
         self._escape_states.clear()
         self._escape_results.clear()
         self._migrated.clear()
+        self.escape_runners.clear()
 
     def _encode_slot(self, regs: np.ndarray, sbuf: np.ndarray,
                      meta: np.ndarray, key, value) -> None:
@@ -1236,20 +1242,90 @@ class TurboEngine:
         for i, res in zip(kept, wide.results(final, len(kept))):
             self._escape_results[i] = res
 
-    def _flush_escapes(self) -> None:
-        """The JAX package runs what no turbo sibling can hold in one
-        batched general-engine runner (``_flush_escapes``,
-        ``vm/turbo.py:3305``). The port's general engine lacks opcodes and
-        the shared LaneRing for that, so an escape raises."""
-        if self._escape_states:
-            gids = [self._gid(i) for i in sorted(self._escape_states)]
-            widest = self._wide_tcfg() or self.tcfg
-            raise NotPorted(
-                f"escape of instance {', '.join(map(str, gids))} to the "
-                f"general engine (ROADMAP Queue 1, escapes): its state "
-                f"outgrows the widest turbo batch on {self.device} "
-                f"({widest.width}-byte slots, {widest.out_width}-byte "
-                f"output)")
+    def _escape_vmconfig(self, out_need: int, str_need: int):
+        """A general-engine VMConfig that holds any state the turbo slot
+        model holds, and the output (``out_need`` bytes) and longest string
+        or element (``str_need``) of the escaping instances: max_str and
+        out_size doubled until they hold twice those (the JAX package's
+        ``_escape_vmconfig``, ``vm/turbo.py:3161``)."""
+        cols, plan = self.cols, self.plan
+        n_lists = max(len(cols.list_ord), 1)
+        out_size = max(4096, 4 * self.tcfg.out_width)
+        while out_size < 2 * out_need:
+            out_size *= 2
+        max_str = max(2 * self.tcfg.width, 512)
+        while max_str < 2 * str_need:
+            max_str *= 2
+        return vm_config.VMConfig(
+            max_str=max_str, max_key=64,
+            n_slots=max(plan.n_slots + 16, 48),
+            arena_size=max(16384,
+                           2 * (plan.n_slots + cols.E * n_lists) * max_str),
+            pool_size=max(96, 4 * cols.E * n_lists),
+            out_size=out_size,
+            max_loops=max(self.compiled.n_loops, 8),
+            max_threads=max(plan.needs_threads, 8))
+
+    def _escape_row(self, rec: dict, i: int, cfg) -> dict:
+        """An escape record as one general-engine row. ``rng`` is the row
+        index ``i`` in this engine, as in the JAX package; inside a
+        parallel block the lanes carry over, a waiting lane with its park
+        kind."""
+        counters = np.zeros((cfg.max_loops,), np.int32)
+        k = min(cfg.max_loops, len(rec["counters"]))
+        counters[:k] = rec["counters"][:k]
+        row = vs.encode_instance(dict(rec["state"]["inserts"]), cfg,
+                                 output=rec["state"]["output"], pc=rec["pc"],
+                                 counters=counters, rng=i,
+                                 steps=rec["steps"])
+        row["par_epoch"] = np.int32(rec["epoch"])
+        par = rec["par"]
+        if par is not None:
+            for lane in range(min(len(par["tstate"]), cfg.max_threads)):
+                row["tpc"][lane] = par["tpc"][lane]
+                row["tstate"][lane] = par["tstate"][lane]
+                row["tpark_arg"][lane] = par["tparg"][lane]
+                if par["tstate"][lane] == T_WAIT:
+                    row["tpark_kind"][lane] = self.plan.park_kind_of.get(
+                        int(par["tparg"][lane]), vm_config.PARK_HOST_OP)
+            row.update(cur_tid=np.int32(par["cur"]),
+                       par_mode=np.int32(par["mode"]),
+                       par_join=np.int32(par["join"]))
+        return row
+
+    async def _flush_escapes(self) -> None:
+        """Run every queued escape in one batch of the general engine (the
+        JAX package's ``_flush_escapes``, ``vm/turbo.py:3305``), on this
+        engine's device (a mesh's first), with its LaneRing, its cached IO
+        managers (an instance keeps the backend that already answered it)
+        and the instances' global ids. A failure fails the run."""
+        if not self._escape_states:
+            return
+        from .driver import DeviceRunner
+        ids = sorted(self._escape_states)
+        recs = [self._escape_states.pop(i) for i in ids]
+
+        def str_need(rec) -> int:
+            sizes = [0]
+            for v in rec["state"]["inserts"].values():
+                for e in (v if isinstance(v, list) else [v]):
+                    if isinstance(e, str):
+                        sizes.append(len(e.encode("utf-8")))
+            return max(sizes)
+
+        cfg = self._escape_vmconfig(
+            max(len(r["state"]["output"].encode("utf-8")) for r in recs),
+            max(str_need(r) for r in recs))
+        runner = DeviceRunner(
+            self.compiled, cfg, io_factory=lambda r: self._io_for(ids[r]),
+            device=self.device, lanering=self._lanering,
+            instance_ids=[self._gid(i) for i in ids])
+        self.escape_runners.append(runner)
+        batch = vs.stack_rows([self._escape_row(rec, i, cfg)
+                               for i, rec in zip(ids, recs)], self.device)
+        final = await runner.run_async(batch)
+        for i, res in zip(ids, runner.results(final)):
+            self._escape_results[i] = res
 
     # ---- the exact park path -------------------------------------------------
 
@@ -1520,7 +1596,7 @@ class TurboEngine:
 
     async def run_async(self, batch, *, max_rounds: int = 10_000):
         """Step until no lane is RUNNING or PARKED (the JAX package's
-        ``run_async``, ``vm/turbo.py:3701``, without escapes). Each round
+        ``run_async``, ``vm/turbo.py:3701``). Each round
         launches the step and downloads the status and classification
         columns (``_meta_full``), cancels the IO of finished parallel
         blocks, and splits the parked rows (``_classify_parked``). The exact
@@ -1530,7 +1606,7 @@ class TurboEngine:
         overlaps the host service), and the exact rows are scattered back.
         A round of fast parks only needs neither. Promotions queued in a
         round run in a sibling batch concurrently with this one, joined at
-        the end; an escape raises ``NotPorted`` there.
+        the end; then the escapes run in one general-engine batch.
 
         Every device-to-host download runs on a worker thread: it blocks
         until the launches before it finish, and meanwhile the event loop
@@ -1619,7 +1695,7 @@ class TurboEngine:
             if isinstance(res, BaseException):
                 raise res
         await self._flush_promotions()
-        self._flush_escapes()
+        await self._flush_escapes()
         n_rows = _n_rows(batch)
         for gid in list(self._lanering.pending):
             if self._row_of(gid, n_rows) is not None:

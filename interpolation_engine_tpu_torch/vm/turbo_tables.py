@@ -94,9 +94,9 @@ _OFF0 = 8
 
 
 class NotPorted(Exception):
-    """What the port cannot run yet: a value that outgrows its slot
-    (promotion to a wider sibling batch). Not a NotTurbo: nothing treats it
-    as a reason to pick another engine."""
+    """A path of the JAX package the port does not carry (the device chat
+    filter). Not a NotTurbo: nothing treats it as a reason to pick another
+    engine."""
 
 
 @dataclass

@@ -14,16 +14,14 @@ import bench
 import test_turbo_eligibility as te
 import torch_programs as tp
 from torch_helpers import (ANSWERS, GEN_CFG, assert_same_state, compile_port,
-                           general_pair, jax_snapshot, port_cfg, prog,
-                           run_general_both, run_host)
+                           general_pair, jax_snapshot, prog, run_general_both,
+                           run_host)
 
 from interpolation_engine_tpu.vm.config import DONE, PARKED, RUNNING
 from interpolation_engine_tpu_torch._shared import isa, planner
 from interpolation_engine_tpu_torch.ops import interp_kernel as ik
 from interpolation_engine_tpu_torch.vm import driver
 from interpolation_engine_tpu_torch.vm import state as port_state
-from interpolation_engine_tpu_torch.vm import step as port_step
-from interpolation_engine_tpu_torch.vm.turbo_tables import NotPorted
 
 
 PROGRAMS = tp.general_programs(bench)
@@ -193,6 +191,8 @@ def test_cli_routes_not_turbo_to_the_general_engine(tmp_path, capsys,
               ["TurboEngine", "DeviceRunner"]),
              ("list_then_scalar", tp.NOT_TURBO["list_then_scalar"],
               ["TurboEngine", "DeviceRunner"]),
+             ("math_replace_map", tp.NOT_TURBO["math_replace_map"],
+              ["TurboEngine", "DeviceRunner"]),
              ("copy_types", tp.COPY_TYPES, ["TurboEngine"])]
     for name, src, engines in cases:
         path = tmp_path / f"{name}.json5"
@@ -204,40 +204,6 @@ def test_cli_routes_not_turbo_to_the_general_engine(tmp_path, capsys,
                          str(path)]) == 0
         assert capsys.readouterr().out == host
         assert made == engines, name
-
-
-# ---------------------------------------------------------------------------
-# deferred opcodes: NotPorted, naming the opcode
-# ---------------------------------------------------------------------------
-
-DEFERRED = {
-    "unescape": "{cmd:'unescape', item:'a', output_name:'u'}",
-    "goto_map": "{cmd:'goto_map', text:'x', target_maps:[{'{k}': '@e'}]}, "
-                "{cmd:'label', name:'@e'}",
-    "math": "{cmd:'math', input:'(1+2)*{k}', output_name:'m'}",
-    "list_join": "{cmd:'list_join', list:'{l}', before:'', between:',', "
-                 "after:'', output_name:'s'}",
-    "list_concat": "{cmd:'list_concat', lists:['{l}', '{l}'], "
-                   "output_name:'s'}",
-    "list_remove": "{cmd:'list_remove', list:'{l}', item:'a', "
-                   "output_name:'s'}",
-    "list_index": "{cmd:'list_index', list:'{l}', index:1, output_name:'s'}",
-    "replace_map": "{cmd:'replace_map', item:'abc', output_name:'s', "
-                   "wildcard_maps:[{'a*': '{1}'}]}",
-    "delete": "{cmd:'delete', wildcards:['k']}",
-    "delete_except": "{cmd:'delete_except', wildcards:['k']}",
-    "random_choice": "{cmd:'random_choice', list:'{l}', output_name:'s'}",
-}
-
-
-@pytest.mark.parametrize("opname", sorted(DEFERRED))
-def test_deferred_opcode_raises_not_ported(opname):
-    src = prog("{k: '3', s: 'x', l: ['a', 'b']}", DEFERRED[opname])
-    compiled = compile_port(src)
-    op = {name: op for op, name in isa.OP_NAMES.items()}[opname]
-    assert op in port_step.used_opcodes(compiled)
-    with pytest.raises(NotPorted, match=f"'{opname}'"):
-        driver.DeviceRunner(compiled, port_cfg(GEN_CFG), device="cpu")
 
 
 def test_list_slice_int_string_bound_equals_jax(tmp_path, capsys):
@@ -288,16 +254,6 @@ def test_list_slice_expression_bound_equals_jax(tmp_path, capsys):
                                          dict(host["inserts"]))
         assert (p.inserts["s"], p.inserts["t"], p.inserts["u"]) == (
             ["b", "c"], ["b", "c", "d"], ["b", "c"])
-
-
-def test_deferred_list_is_the_roadmap_order():
-    assert [isa.OP_NAMES[op] for op in port_step.DEFERRED] == [
-        "unescape", "goto_map", "math", "list_join", "list_concat",
-        "list_remove", "list_index", "replace_map", "delete",
-        "delete_except", "random_choice"]
-    assert len(port_step.PORTED) == 19
-    assert not port_step.PORTED & set(port_step.DEFERRED)
-    assert len(port_step.PORTED) + len(port_step.DEFERRED) == isa.N_OPS
 
 
 # ---------------------------------------------------------------------------

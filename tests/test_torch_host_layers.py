@@ -90,6 +90,7 @@ def run_host_both(src, tmp_path):
     path.write_text(src)
 
     def run(main, io):
+        random.seed(0)   # random_choice: the same draws in both runtimes
         try:
             state = asyncio.run(main(str(path), [], io))
             return ("ok", state["output"], dict(state["inserts"]))

@@ -208,18 +208,32 @@ def test_kernel_refuses_a_width_past_its_limit(cuda):
         eng.step_fn(3)(eng.make_batch(3))
 
 
-def test_sibling_past_the_kernel_width_escapes_on_the_card(cuda):
+def test_sibling_past_the_kernel_width_escapes_on_the_card(cuda, tmp_path,
+                                                           capsys):
     """A width-1024 batch would promote into a 4096-byte sibling, past the
-    kernel's 2048: no sibling is built, and the run ends in the escape's
-    NotPorted, not in the kernel's ValueError."""
+    kernel's 2048: no sibling is built, not the kernel's ValueError; the
+    instances escape to one general-engine batch on the card and finish
+    equal to the host."""
+    import asyncio
     from interpolation_engine_tpu_torch._shared import io_manager as iom
-    from interpolation_engine_tpu_torch.vm.turbo_tables import NotPorted
+    from interpolation_engine_tpu_torch._shared import runtime
+    from interpolation_engine_tpu_torch.vm.turbo import DONE
+    answer = ["Z" * 1500]
     eng = TurboEngine(compile_src(tp.FAST_OVERFLOW), TurboConfig(
         width=1024, out_width=1024, k_steps=16), io_factory=lambda i:
-        iom.IOManager(iom.ScriptedBackend(["Z" * 1500])), device=cuda)
-    with pytest.raises(NotPorted, match=r"escape of instance 0, 1 .*1024-"):
-        eng.run(eng.make_batch(2))
-    assert not eng._escape_results
+        iom.IOManager(iom.ScriptedBackend(list(answer))), device=cuda)
+    res = eng.results(eng.run(eng.make_batch(2)))
+    assert sorted(eng._escape_results) == [0, 1]
+    assert eng.escape_runners[0].device == cuda
+    path = tmp_path / "prog.json5"
+    path.write_text(tp.FAST_OVERFLOW)
+    host = asyncio.run(runtime.async_main(
+        str(path), [], iom.IOManager(iom.ScriptedBackend(list(answer)))))
+    capsys.readouterr()
+    for r in res:
+        assert r.status == DONE
+        assert (r.output, r.inserts) == (host["output"],
+                                         dict(host["inserts"]))
 
 
 def test_fast_ring_and_promotion_on_the_card_equal_the_cpu(cuda):

@@ -21,7 +21,6 @@ from interpolation_engine_tpu_torch.ops import turbo_step as ts
 from interpolation_engine_tpu_torch.parallel.mesh import (
     ShardedTurboBatch, make_mesh, shard_turbo_batch, unshard)
 from interpolation_engine_tpu_torch.vm import turbo as pt
-from interpolation_engine_tpu_torch.vm.turbo_tables import NotPorted
 
 MESH4 = ["cpu"] * 4
 ADV_TCFG = pt.TurboConfig(tile=2, width=64, out_width=128, k_steps=8)
@@ -250,14 +249,23 @@ def echo_engine(answer):
                           mesh=MESH4)
 
 
-def test_promotion_still_raises_not_ported_on_a_mesh():
-    """Past the sibling, promotion on a mesh still ends in NotPorted:
-    answers of 300 bytes and more outgrow the 256-byte sibling of the
-    64-byte shards, and their escape to the general engine, which the port
-    does not have yet, raises, naming the escaped instances."""
+def test_promotion_still_raises_not_ported_on_a_mesh(tmp_path, capsys):
+    """Past the sibling, a mesh engine's instances escape: answers of 300
+    bytes and more outgrow the 256-byte sibling of the 64-byte shards and
+    finish in one general-engine batch on the mesh's first device, the
+    others in the sibling, every instance equal to the host."""
     eng = echo_engine("x" * 100)
-    with pytest.raises(NotPorted, match="escape of instance 2, 3, 4, 5"):
-        eng.run(eng.make_batch(8))
+    res = eng.results(eng.run(eng.make_batch(8)))
+    assert sorted(eng._escape_results) == list(range(8))
+    [runner] = eng.escape_runners
+    assert runner.instance_ids == list(range(2, 8))
+    assert runner.device == torch.device(MESH4[0])
+    for i, r in enumerate(res):
+        host = run_host(ECHO, tmp_path, ["x" * 100 * (i + 1)])
+        capsys.readouterr()
+        assert r.status == DONE
+        assert (r.output, r.inserts) == (host["output"],
+                                         dict(host["inserts"]))
 
 
 def test_promotion_on_a_mesh_agrees_with_host(tmp_path, capsys):

@@ -7,14 +7,13 @@ import torch
 
 import torch_programs as tp
 from torch_helpers import (PORT_TCFG, port_engine, run_host, run_jax,
-                           run_port, summary)
+                           summary)
 
 from interpolation_engine_tpu.vm.config import DONE, PARK_USER_INPUT
 from interpolation_engine_tpu_torch import cli
 from interpolation_engine_tpu_torch.ops import turbo_step as ts
 from interpolation_engine_tpu_torch.vm import turbo as port_turbo
 from interpolation_engine_tpu_torch.vm.driver import run_program_on_device
-from interpolation_engine_tpu_torch.vm.turbo_tables import NotPorted
 
 FOR_PARK = """
 {
@@ -85,11 +84,22 @@ def test_output_spill(src, tmp_path, capsys):
         assert r.output == host["output"]
 
 
-def test_value_too_wide_raises_not_ported():
+def test_value_too_wide_raises_not_ported(tmp_path, capsys):
     """A value too wide even for the 4x sibling (500 bytes against 256)
-    would escape to the general engine, which the port does not do yet."""
-    with pytest.raises(NotPorted, match=r"escape of instance 0 .*escapes"):
-        run_port(tp.USER_INPUT, 1, responses=["x" * 500])
+    escapes: the instance finishes in one batch of the general engine,
+    equal to the host and to the JAX engine."""
+    answer = ["x" * 500]
+    host = run_host(tp.USER_INPUT, tmp_path, answer)
+    capsys.readouterr()
+    eng = port_engine(tp.USER_INPUT, responses=answer)
+    res = eng.results(eng.run(eng.make_batch(1), max_rounds=500))
+    assert sorted(eng._escape_results) == [0]
+    assert [r.instance_ids for r in eng.escape_runners] == [[0]]
+    assert res[0].status == DONE
+    assert (res[0].output, res[0].inserts) == (host["output"],
+                                               dict(host["inserts"]))
+    assert summary(res[0]) == summary(run_jax(tp.USER_INPUT, 1,
+                                              responses=answer)[0])
 
 
 @pytest.mark.parametrize("fast", [True, False], ids=["fast", "exact"])

@@ -19,7 +19,6 @@ from interpolation_engine_tpu_torch.vm import turbo as port_turbo
 from interpolation_engine_tpu_torch.vm import turbo_tables as tt
 from interpolation_engine_tpu_torch.vm.state import T_INT, T_LIST, T_STR
 from interpolation_engine_tpu_torch.vm.turbo import C_PC, C_STATUS
-from interpolation_engine_tpu_torch.vm.turbo_tables import NotPorted
 
 
 def parks_at(src, pc, **kw):
@@ -134,9 +133,9 @@ def test_append_parks_on_a_missing_list_and_at_capacity(tmp_path, capsys):
     eng, batch = parks_at(full, 0)
     assert batch.regs[0, eng.cols.slen(eng.plan.slot_of["l"])] == 12
     # the host's 13 elements outgrow the sibling's 12 too: an escape to the
-    # general engine, not ported
-    with pytest.raises(NotPorted, match="escape"):
-        run_port(full, 1)
+    # general engine, which finishes it
+    assert agree_with_host(full, tmp_path, capsys).inserts["l"] == [
+        f"e{k}" for k in range(PORT_TCFG.list_cap)] + ["q"]
 
 
 def test_append_parks_on_an_element_longer_than_its_cell(tmp_path, capsys):
@@ -202,8 +201,7 @@ def test_concat_parks_past_the_list_capacity(tmp_path, capsys):
     over = prog("{a: %s, b: %s}" % (seven, seven),
                 "{cmd:'list_concat', lists:['{a}','{b}'], output_name:'c'}")
     parks_at(over, 0)    # 14 elements: past the sibling's 12 as well
-    with pytest.raises(NotPorted, match="escape"):
-        run_port(over, 1)
+    assert agree_with_host(over, tmp_path, capsys).inserts["c"] == seven * 2
 
 
 def test_join_parks_on_a_non_string_element_and_on_overflow(tmp_path,

@@ -2,8 +2,8 @@
 value outgrows its slot moves, mid-run, into one sibling batch 4x wider,
 run concurrently with its batch, and finishes there equal to the host, the
 port's exact ring and, where named, the JAX engine (interpret mode). What
-even the sibling cannot hold would escape to the general engine, which the
-port does not do yet: that raises ``NotPorted``."""
+even the sibling cannot hold escapes to one batch of the general engine
+(``tests/test_torch_turbo_escapes.py`` holds escapes to the JAX engine)."""
 
 import asyncio
 
@@ -18,7 +18,6 @@ from interpolation_engine_tpu.vm import turbo as jax_turbo
 from interpolation_engine_tpu.vm.config import DONE
 from interpolation_engine_tpu_torch import _shared as port
 from interpolation_engine_tpu_torch.vm import turbo as pt
-from interpolation_engine_tpu_torch.vm.turbo_tables import NotPorted
 
 SIZES = dict(tile=8, width=64, out_width=192, k_steps=24)
 # the JAX promotion tests' shape: width 192, a 768-byte sibling
@@ -161,13 +160,17 @@ def test_promotion_under_shard_engines_equals_one_engine():
 
 
 @pytest.mark.parametrize("fast", [True, False], ids=["fast", "exact"])
-def test_value_too_wide_for_the_sibling_raises_the_escape(fast):
-    """3,000 bytes outgrow the 768-byte sibling too: the JAX package would
-    run the instance on its general engine; the port raises NotPorted
-    naming the escape, at the end of the run."""
-    eng = engine(tp.FAST_OVERFLOW, lambda i: ["Z" * 3000], fast)
-    with pytest.raises(NotPorted, match=r"escape of instance 0, 1 .*768"):
-        results(eng, 2)
+def test_value_too_wide_for_the_sibling_raises_the_escape(fast, tmp_path,
+                                                          capsys):
+    """3,000 bytes outgrow the 768-byte sibling too: the instances escape,
+    at the end of the run, to one batch of the general engine, whose
+    strings hold twice the widest value (8,192 bytes), and finish there
+    equal to the host, through either park path."""
+    eng, _ = agree(tp.FAST_OVERFLOW, lambda i: ["Z" * 3000], 2, tmp_path,
+                   capsys)
+    assert sorted(eng._escape_results) == [0, 1]
+    [runner] = eng.escape_runners
+    assert runner.instance_ids == [0, 1] and runner.cfg.max_str == 8192
 
 
 class SlowPrompt(port.io_manager.BufferBackend):
@@ -220,14 +223,15 @@ def test_promotion_keeps_the_other_lanes_pending_io(tmp_path, capsys):
                                          dict(host["inserts"]))
 
 
-def test_sibling_past_the_kernel_width_escapes(monkeypatch):
+def test_sibling_past_the_kernel_width_escapes(monkeypatch, tmp_path,
+                                               capsys):
     """A sibling wider than the step takes on the engine's device (on a
-    card, the kernel's 2048 bytes) is never built: its instances go to the
-    escape, and the run ends in NotPorted naming it, not in the kernel's
-    ValueError from inside the sibling. On the CPU the plain version has
-    no limit, so the test lowers it to 512 under the 768-byte sibling."""
+    card, the kernel's 2048 bytes) is never built: its instances escape to
+    the general engine, not into the kernel's ValueError from inside the
+    sibling, and finish equal to the host. On the CPU the plain version
+    has no limit, so the test lowers it to 512 under the 768-byte
+    sibling."""
     monkeypatch.setattr(pt, "step_max_width", lambda device: 512)
-    eng = engine(tp.WIDE_VALUE, lambda i: [BIG])
-    with pytest.raises(NotPorted, match=r"escape of instance 0, 1 .*192-"):
-        results(eng, 2)
-    assert not eng._escape_results
+    eng, _ = agree(tp.WIDE_VALUE, lambda i: [BIG], 2, tmp_path, capsys)
+    assert sorted(eng._escape_results) == [0, 1]
+    assert [r.instance_ids for r in eng.escape_runners] == [[0, 1]]

@@ -180,8 +180,8 @@ def test_halt_takes_no_step():
 
 
 def test_adventure_raises_not_ported(tmp_path, capsys):
-    """No list or lane instruction raises NotPorted (a class that promotion
-    still raises, and no NotTurbo): the adventure program runs to DONE
+    """No list or lane instruction raises NotPorted (a class nothing on the
+    turbo path raises, and no NotTurbo): the adventure program runs to DONE
     equal to the host and to JAX."""
     assert_three_agree(bench.adventure_program(t_max=12), tmp_path, capsys)
     assert not issubclass(NotPorted, planner.NotTurbo)

@@ -496,7 +496,57 @@ NOT_TURBO = {
              {cmd:'print', text:'n={n}'}],
      named_tasks: {}, save_states: {}}
     """,
+    # math the compiler does not lower to RPN, and replace_map, under a
+    # dynamic output name
+    "math_replace_map": """
+    {default_state: {order_index: 1, inserts: {k: 'out', e: '4*(2+3)'}},
+     order: [{cmd:'math', input:'{e} // 3', output_name:'{k}'},
+             {cmd:'replace_map', item:'v={out}', output_name:'r',
+              wildcard_maps:[{'v=*': '[{1}]'}]},
+             {cmd:'print', text:'{r}'}],
+     named_tasks: {}, save_states: {}}
+    """,
 }
+
+# the general engine's 11 opcodes past the 19 of its first port, in one
+# program that parks nowhere (no print of a list); fits the bench's general
+# VMConfig (12 slots: two are freed before replace_map stages two captures)
+GENERAL_OPS = """
+{
+    default_state: {order_index: 1, inserts: {
+        l: ['b', 'a', 'c'], k: '2', e: 'x\\\\{k\\\\}', t1: 'a', t2: 'b'}},
+    order: [
+        {cmd:'delete', wildcards:['t*']},
+        {cmd:'delete_except', wildcards:['l', 'k', 'e*']},
+        {cmd:'math', input:'3*({k}+1) // 1', output_name:'m'},
+        {cmd:'unescape', item:'{e}', output_name:'u'},
+        {cmd:'list_concat', lists:['{l}', ['d']], output_name:'c'},
+        {cmd:'list_remove', list:'{c}', item:'a', output_name:'c'},
+        {cmd:'list_index', list:'{c}', index:'{k}', output_name:'i'},
+        {cmd:'list_join', list:'{c}', before:'[', between:'|', after:']',
+         output_name:'j'},
+        {cmd:'random_choice', list:'{c}', output_name:'r'},
+        {cmd:'replace_map', item:'{j}', output_name:'p',
+         wildcard_maps:[{'[*|*]': '{2}+{1}'}, {'NULL': 'none'}]},
+        {cmd:'goto_map', text:'{r}', target_maps:[
+            {'{k}': '@no'}, {'{i}': '@mid'}, {'*': '@end'}]},
+        {cmd:'label', name:'@no'},
+        {cmd:'print', text:'NO;'},
+        {cmd:'label', name:'@mid'},
+        {cmd:'print', text:'mid;'},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'{m} {u} {i} {j} {p} {r}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+
+def general_ops_choice(rng: int) -> int:
+    """GENERAL_OPS's random_choice index for an instance whose rng starts
+    at ``rng`` (the general engine's row + 1): the JAX package's uint32
+    LCG, over the three elements of c."""
+    return ((((rng * 1664525) + 1013904223) & 0xFFFFFFFF) >> 8) % 3
 
 
 def _cut(src: str, old: str, new: str) -> str:
