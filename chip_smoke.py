@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``interpolation_engine_tpu_torch``) on one CUDA
 card and check it.
 
-    python3 chip_smoke.py      # phases 1-15 and the result lines
+    python3 chip_smoke.py      # phases 1-18 and the result lines
 
 Phases, each of which raises on any failure (the script then exits non-zero
 and prints no result):
@@ -67,7 +67,8 @@ and prints no result):
    the host engine's output and inserts; ring_stats printed;
 10. the CLI on programs the turbo planner rejects: ``--engine device
    --batch 4`` prints what the port's host CLI prints, through the general
-   engine and the brace-scan kernel;
+   engine and the brace-scan kernel, and so does ``--batch 1``, through
+   the interactive ``DeviceProgramRun``;
 11. the turbo engine over a mesh (every card when there are two or more,
    else four shards on ``cuda:0``): adventure at 131,072 instances, the
    sharded step bit-identical to the unsharded step and to its plain
@@ -104,7 +105,33 @@ and prints no result):
    2,048-byte sibling: those 1,024 instances escape to one general-engine
    batch (its lane IO through the shared LaneRing), every instance equal
    to the host; then the same from the mesh engine (phase 11's mesh) at
-   4,096 instances; the escape runner's ``ring_stats``.
+   4,096 instances; the escape runner's ``ring_stats``;
+16. resume on the turbo engine: bench.py's divergent batch (the adventure
+   at 40 turns, phase 5's config, 131,072 instances from 8 states at
+   spread order indexes) through ``load_batch`` (U = 8, its seconds), the
+   first launch held against the plain version, run to DONE with every
+   instance equal to the host resumed from its class's state, and tasks/s;
+   bench.py's ring batch (one instance in ten at ``sel: 'park'``, exit key
+   '3') through ``load_batch`` and the fast park path, equal to the host;
+   then a round trip: the adventure at 131,072 from the 8 divergent
+   states with turns spread 24-39, ``export_state`` of 1,024 rows after
+   1, 2 and 3 launches (some inside the parallel block; ms a row; at
+   least 128 distinct states and more cursor chains than the 8 starts),
+   ``load_batch`` of those states into a fresh engine, run to DONE, each
+   row equal to the host resumed from its state;
+17. resume on the general engine: 256 of phase 16's exported states
+   through ``DeviceRunner.load_state`` at the bench's general VMConfig,
+   the first launch's brace scans held against the plain version, run to
+   DONE equal to the host; then ``DeviceProgramRun`` with a scripted
+   backend: Save State at the second input and Quit (the spliced file
+   parses back to the same ``save_states``), and a fresh run that loads
+   slot 1 and prints what the host CLI prints;
+18. the general engine over a mesh (phase 11's): the adventure at the
+   bench's general VMConfig, 131,072 instances, 2 launches x 8 steps,
+   every VMBatch field bit-identical to one device, the brace scan on
+   every device of the mesh, ms per step of each; then a parallel_wait
+   program at 4,096 instances, each answering its own inputs, to DONE over
+   the mesh, field for field the unsharded run, outputs the host's.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -1007,35 +1034,49 @@ def phase10(tmp: str, not_turbo: dict) -> None:
             [sys.executable, "-m", "interpolation_engine_tpu_torch.cli", path],
             cwd=ROOT, capture_output=True, text=True, check=True,
             timeout=300).stdout
-        runs = []
-        launch = driver.DeviceRunner.launch
+        # batch 4 runs the general engine's batch, batch 1 the interactive
+        # DeviceProgramRun (the Esc menu's route)
+        for batch in (4, 1):
+            runs, menus = [], []
+            launch = driver.DeviceRunner.launch
+            menu_run = driver.DeviceProgramRun.run
 
-        def counted(self, batch, inner, _launch=launch):
-            runs.append(batch.n)
-            return _launch(self, batch, inner)
+            def counted(self, b, inner, _launch=launch):
+                runs.append(b.n)
+                return _launch(self, b, inner)
 
-        brace_scan.launches = turbo_step.launches = 0
-        driver.DeviceRunner.launch = counted
-        out = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(out):
-                rc = cli.main(["--engine", "device", "--batch", "4", path])
-        finally:
-            driver.DeviceRunner.launch = launch
-        port = out.getvalue()
-        if rc != 0 or port != host:
-            raise AssertionError(f"phase 10 {name}: port CLI {port!r} (rc "
-                                 f"{rc}) != host {host!r}")
-        if not runs or set(runs) != {4} or brace_scan.launches <= 0 \
-                or turbo_step.launches != 0:
-            raise AssertionError(
-                f"phase 10 {name}: general-engine launches {len(runs)}, "
-                f"brace-scan launches {brace_scan.launches}, turbo "
-                f"launches {turbo_step.launches}")
-        log(f"phase 10 cli {name}: --engine device --batch 4 printed "
-            f"{port!r}, as the host CLI, through the general engine "
-            f"({len(runs)} launches, {brace_scan.launches} brace-scan "
-            f"launches)")
+            def menu_counted(self, _run=menu_run):
+                menus.append(self)
+                return _run(self)
+
+            brace_scan.launches = turbo_step.launches = 0
+            driver.DeviceRunner.launch = counted
+            driver.DeviceProgramRun.run = menu_counted
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(["--engine", "device", "--batch",
+                                   str(batch), path])
+            finally:
+                driver.DeviceRunner.launch = launch
+                driver.DeviceProgramRun.run = menu_run
+            port = out.getvalue()
+            if rc != 0 or port != host:
+                raise AssertionError(f"phase 10 {name}: port CLI {port!r} "
+                                     f"(rc {rc}) != host {host!r}")
+            if not runs or set(runs) != {batch} or \
+                    len(menus) != (batch == 1) or \
+                    brace_scan.launches <= 0 or turbo_step.launches != 0:
+                raise AssertionError(
+                    f"phase 10 {name}: general-engine launches {len(runs)}, "
+                    f"DeviceProgramRuns {len(menus)}, brace-scan launches "
+                    f"{brace_scan.launches}, turbo launches "
+                    f"{turbo_step.launches}")
+            route = "DeviceProgramRun" if batch == 1 else "general engine"
+            log(f"phase 10 cli {name}: --engine device --batch {batch} "
+                f"printed {port!r}, as the host CLI, through the {route} "
+                f"({len(runs)} launches, {brace_scan.launches} brace-scan "
+                f"launches)")
 
 
 def timed_on(fn, batch, launches: int, devices,
@@ -1603,6 +1644,427 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
             f"{json.dumps(runner.ring_stats)}")
 
 
+def run_host_from(src: str, state: dict, io, tmp: str) -> dict:
+    """The host engine resumed from a reference-format state (the program's
+    default_state replaced, line numbers kept)."""
+    import torch_programs as tp
+    return run_host(tp.with_state(src, state), io, tmp)
+
+
+def state_key(state: dict) -> str:
+    return json.dumps(state, sort_keys=True)
+
+
+def check_classes(name: str, eng, final, cls, hosts: list) -> None:
+    """Every row equals, field for field on the card, the first row of its
+    class (``cls[row]``); that row, decoded, is DONE with its class's host
+    output and inserts."""
+    import numpy as np
+    import torch
+    from interpolation_engine_tpu_torch.vm.turbo import C_STATUS, DONE
+    cls = np.asarray(cls)
+    reps = np.asarray([int(np.argmax(cls == c)) for c in range(len(hosts))])
+    idx = torch.from_numpy(reps[cls]).to(final.regs.device)
+    for t, axis in zip(final, (0, 1, 0, 1)):
+        if not torch.equal(t, t.index_select(axis, idx)):
+            raise AssertionError(f"{name}: a row differs from its class")
+    sub, _ = eng._gather_sub(final, np.sort(reps))
+    order = np.argsort(reps)
+    for j, c in enumerate(order):
+        got = eng._decode_row(sub, j, int(reps[c]))
+        host = hosts[c]
+        if int(sub["regs"][j, C_STATUS]) != DONE or \
+                (got["output"], got["inserts"]) != \
+                (host["output"], dict(host["inserts"])):
+            raise AssertionError(f"{name}: class {c}: {got} != host "
+                                 f"{host}")
+
+
+def phase16(card: str, tmp: str, n: int = 131_072,
+            n_export: int = 1024) -> dict:
+    """Resume on the turbo engine: bench.py's divergent and ring batches
+    through ``load_batch`` to DONE, then a mid-run export and reload."""
+    import numpy as np
+    import torch
+    import torch_programs as tp
+    import bench
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        turbo_step, turbo_step_reference)
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        C_PARMODE, C_STEPS, DONE, TurboConfig, TurboEngine)
+    tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
+                       elem_width=32)   # phase 5's
+    launches = 0
+
+    def counted_run(eng, batch):
+        nonlocal launches
+        turbo_step.launches = turbo_step_reference.launches = 0
+        sync_all()
+        t0 = time.perf_counter()
+        final = eng.run(batch)
+        sync_all()
+        elapsed = time.perf_counter() - t0
+        if turbo_step.launches <= 0 or turbo_step_reference.launches:
+            raise AssertionError(
+                f"phase 16: the run launched the kernel {turbo_step.launches}"
+                f" times, the plain version "
+                f"{turbo_step_reference.launches}")
+        launches += turbo_step.launches
+        return final, elapsed
+
+    # (a) divergent: 8 states at spread order indexes (bench.py:516-527)
+    src = bench.adventure_program(t_max=40)
+    eng = TurboEngine(compile_src(src), tcfg, device="cuda")
+    states = tp.divergent_states(eng.compiled, eng.plan.slot_of, n)
+    uniq = {}
+    load_state = eng.load_state
+
+    def counting(state, i=None):
+        uniq[i] = state["order_index"]
+        return load_state(state, i)
+    eng.load_state = counting
+    sync_all()
+    t0 = time.perf_counter()
+    batch = eng.load_batch(states)
+    sync_all()
+    load_s = time.perf_counter() - t0
+    if len(uniq) != 8:
+        raise AssertionError(f"phase 16: load_batch encoded {len(uniq)} "
+                             f"distinct rows, not 8")
+    kern, ref = clone(batch), clone(batch)
+    turbo_step(eng.tables, kern, tcfg.k_steps)
+    turbo_step_reference(eng.tables, ref, tcfg.k_steps)
+    torch.cuda.synchronize()
+    worst = max_abs_diff(kern, ref)
+    if worst:
+        raise AssertionError("phase 16: kernel and plain version differ on "
+                             "the divergent batch's first launch")
+    del kern, ref
+    hosts = [run_host_from(src, states[c], canned_io(), tmp)
+             for c in range(8)]
+    final, elapsed = counted_run(eng, batch)
+    check_classes("phase 16 divergent", eng, final, np.arange(n) % 8, hosts)
+    total = int(final.regs[:, C_STEPS].long().sum())
+    log(f"phase 16 divergent [{card}]: {n} instances from 8 states at "
+        f"order indexes {sorted(set(uniq.values()))}, load_batch "
+        f"(U = {len(uniq)}: encode, upload, gather) {load_s:.3f} s; the "
+        f"first launch bit-identical to the plain version; run to DONE "
+        f"{elapsed:.3f} s, {total} steps = {total / elapsed:.1f} tasks/s; "
+        f"every instance equal to the host resumed from its class's state")
+    del batch, final
+
+    # (b) ring: one instance in ten at sel 'park' (bench.py:568-594)
+    ring_src = bench.RING_PROGRAM.replace("'1073741824'", "'3'")
+    ring = TurboEngine(compile_src(ring_src), TurboConfig(
+        width=128, out_width=192, k_steps=64), io_factory=lambda i:
+        canned_io(), device="cuda")
+    rstates = tp.ring_states(ring.compiled, n)
+    final, elapsed = counted_run(ring, ring.load_batch(rstates))
+    cls = np.asarray([0 if s["inserts"]["sel"] == "park" else 1
+                      for s in rstates])
+    check_classes("phase 16 ring", ring, final, cls, [
+        run_host_from(ring_src, rstates[int(np.argmax(cls == c))],
+                      canned_io(), tmp) for c in (0, 1)])
+    rs = ring.ring_stats
+    if rs["parks"] != 3 * int((cls == 0).sum()):
+        raise AssertionError(f"phase 16 ring: {rs['parks']} parks")
+    log(f"phase 16 ring [{card}]: {n} instances, {int((cls == 0).sum())} at "
+        f"sel 'park', through load_batch and the fast park path to DONE in "
+        f"{elapsed:.3f} s, every instance equal to the host for its class; "
+        f"ring_stats {json.dumps(rs)}")
+    del final
+
+    # (c) a mid-run round trip: rows of a running batch exported after
+    # 1, 2 and 3 launches (some inside the parallel block), loaded into a
+    # fresh engine and run on. The batch starts from the 8 divergent
+    # states with turns spread 24-39 (every instance reaches turn 40 in few
+    # turns), so the rows differ in pc, lanes and inserts
+    eng = TurboEngine(compile_src(src), tcfg, device="cuda")
+    batch = eng.load_batch(tp.divergent_states(eng.compiled,
+                                               eng.plan.slot_of, n))
+    spread_slot(eng, batch, "turn", 16, torch.Generator().manual_seed(SEED))
+    batch.regs[:, eng.cols.sint(eng.plan.slot_of["turn"])] += 24
+    step = eng.step_fn(n)
+    rows = np.sort(np.random.default_rng(SEED).choice(n, n_export,
+                                                      replace=False))
+    exported = [None] * len(rows)
+    in_block, export_s = 0, 0.0
+    for launch in range(3):
+        step(batch)
+        idx = np.arange(launch, len(rows), 3)
+        in_block += int((batch.regs[torch.from_numpy(rows[idx]).to("cuda"),
+                                    C_PARMODE] > 0).sum())
+        sync_all()
+        t0 = time.perf_counter()
+        for j in idx:
+            exported[j] = eng.export_state(batch, int(rows[j]))
+        export_s += time.perf_counter() - t0
+    export_s /= len(rows)
+    if not 0 < in_block < len(rows):
+        raise AssertionError(f"phase 16: {in_block} of {len(rows)} exported "
+                             f"rows inside the parallel block")
+    n_states = len({state_key(st) for st in exported})
+    n_chains = len({state_key({k: v for k, v in st.items()
+                               if k not in ("inserts", "output")})
+                    for st in exported})
+    if n_states < 128 or n_chains <= 8:
+        raise AssertionError(f"phase 16: the exported rows hold only "
+                             f"{n_states} distinct states, {n_chains} "
+                             f"cursor chains")
+    fresh = TurboEngine(compile_src(src), tcfg, device="cuda")
+    final, elapsed = counted_run(fresh, fresh.load_batch(exported))
+    hosts = {}
+    for st in exported:
+        if state_key(st) not in hosts:
+            hosts[state_key(st)] = run_host_from(src, st, canned_io(), tmp)
+    for i, (st, r) in enumerate(zip(exported, fresh.results(final))):
+        host = hosts[state_key(st)]
+        if r.status != DONE or (r.output, r.inserts) != \
+                (host["output"], dict(host["inserts"])):
+            raise AssertionError(f"phase 16 round trip: row {rows[i]}: {r} "
+                                 f"!= host {host}")
+    log(f"phase 16 round trip [{card}]: adventure at {n} instances from the "
+        f"8 divergent states (turns spread 24-39), export_state of "
+        f"{len(rows)} rows after 1, 2 and 3 launches ({in_block} inside "
+        f"the parallel block) at {export_s * 1e3:.3f} ms a row: "
+        f"{n_states} distinct states, {n_chains} distinct cursor chains; "
+        f"load_batch of those states and run to DONE in {elapsed:.3f} s, "
+        f"each row equal to the host resumed from its state")
+    return {"launches": launches, "max_abs_err": worst,
+            "states": exported, "hosts": hosts}
+
+
+def phase17(card: str, tmp: str, states: list, hosts: dict,
+            n: int = 256) -> dict:
+    """Resume on the general engine: phase 16's exported states through
+    ``DeviceRunner.load_state``, then the device menu's Save and Load."""
+    import io as io_mod
+    import torch
+    import torch_programs as tp
+    from interpolation_engine_tpu_torch._shared import (
+        io_manager, json5, loader, vm_config)
+    from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
+    from interpolation_engine_tpu_torch.ops import interp_kernel as ik
+    from interpolation_engine_tpu_torch.vm import state as vs
+    from interpolation_engine_tpu_torch.vm.driver import (DeviceProgramRun,
+                                                          DeviceRunner)
+    import bench
+    src = bench.adventure_program(t_max=40)
+    runner = DeviceRunner(compile_src(src), vm_config.VMConfig(**GENERAL_CFG),
+                          device="cuda")
+    picked = states[::max(len(states) // n, 1)][:n]
+    batch = vs.stack_rows([runner.load_state(st) for st in picked], "cuda")
+    checked = CheckedScan(scan_mod.brace_scan, scan_mod.brace_scan_reference)
+    scan_mod.brace_scan.launches = scan_mod.brace_scan_reference.launches = 0
+    ik.scan_mod = type("ScanHook", (), {"brace_scan": checked})
+    try:
+        checked.check = True
+        batch = runner.launch(batch, 8)
+        torch.cuda.synchronize()
+        checked.check = False
+        if checked.compared == 0:
+            raise AssertionError("phase 17: no brace-scan call compared")
+        t0 = time.perf_counter()
+        final = runner.run(batch)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        ik.scan_mod = scan_mod
+    for st, r in zip(picked, runner.results(final)):
+        host = hosts[state_key(st)]
+        if r.status != vm_config.DONE or (r.output, r.inserts) != \
+                (host["output"], dict(host["inserts"])):
+            raise AssertionError(f"phase 17: {r} != host {host}")
+    log(f"phase 17 general resume [{card}]: {n} of phase 16's states "
+        f"through DeviceRunner.load_state at the bench's general VMConfig, "
+        f"{checked.compared} brace-scan calls of the first launch "
+        f"bit-identical to the plain version, run to DONE in {elapsed:.3f} "
+        f"s, each equal to the host; ring_stats "
+        f"{json.dumps(runner.ring_stats)}")
+
+    # the device menu: Save at the second input and Quit, then a fresh run
+    # that loads slot 1
+    path = os.path.join(tmp, "menu.json5")
+    with open(path, "w") as f:
+        f.write(tp.MESH_SRC)
+    host = run_host(tp.MESH_SRC, io_manager.IOManager(
+        io_manager.ScriptedBackend(["u0", "v0"])), tmp)
+
+    class MenuBackend(io_manager.ScriptedBackend):
+        """The ``menu_at``-th user_input opens the menu (Esc) and waits to
+        be cancelled; an empty script waits too."""
+        menu_at, n_inputs, run = 0, 0, None
+
+        async def user_input(self, prompt, default=""):
+            self.n_inputs += 1
+            if self.n_inputs == self.menu_at:
+                self.run.toggle_menu()
+                await asyncio.Event().wait()
+            if not self.responses:
+                await asyncio.Event().wait()
+            return await super().user_input(prompt, default)
+
+        async def select_index(self, options, description=None):
+            if not self.responses:
+                await asyncio.Event().wait()
+            return await super().select_index(options, description)
+
+    def menu_run(responses, menu_at, drive=None):
+        loader.invalidate_cache()
+        backend = MenuBackend(list(responses))
+        backend.menu_at = menu_at
+        run = backend.run = DeviceProgramRun(
+            path, [], io_manager.IOManager(backend), device="cuda")
+        out = io_mod.StringIO()
+
+        async def main():
+            task = asyncio.create_task(run.run())
+            if drive is not None:
+                await drive(run, backend)
+            return await task
+        with contextlib.redirect_stdout(out):
+            asyncio.run(main())
+        return run, out.getvalue()
+
+    first, printed = menu_run(["u0", "1", "1", "slot-a", "4"], 2)
+    with open(path) as f:
+        saves = json5.loads(f.read())["save_states"]
+    want = dict(first.runner.export_state(first.batch, 0), label="slot-a")
+    if saves != first.runner.compiled.program["save_states"] or \
+            saves.get("1") != want or printed != "hi;[u0!]\n":
+        raise AssertionError(f"phase 17 menu: saved {saves}, printed "
+                             f"{printed!r}")
+
+    async def load_then_answer(run, backend):
+        while len(backend.exchanges) < 2:
+            await asyncio.sleep(0.02)
+        await asyncio.sleep(0.1)
+        backend.responses.append("v0")
+        run.toggle_menu()
+    second, printed = menu_run(["2", "1"], 1, load_then_answer)
+    if printed != host["output"].strip() + "\n":
+        raise AssertionError(f"phase 17 menu: the loaded run printed "
+                             f"{printed!r}, the host {host['output']!r}")
+    launches = scan_mod.brace_scan.launches
+    if launches <= 0 or \
+            scan_mod.brace_scan_reference.launches != checked.compared:
+        raise AssertionError(f"phase 17: brace-scan launches {launches}, "
+                             f"plain {scan_mod.brace_scan_reference.launches}")
+    log(f"phase 17 device menu [{card}]: Save State at the second input "
+        f"(slot 1, {json.dumps(saves['1'])}) and Quit printed "
+        f"{'hi;[u0!]'!r}; a fresh run's Load State of slot 1 then printed "
+        f"{printed.strip()!r}, as the host; {launches} brace-scan launches "
+        f"in phase 17")
+    return {"launches": launches, "max_abs_err": checked.worst}
+
+
+def phase18(card: str, tmp: str, n: int = 131_072,
+            n_ring: int = 4096) -> dict:
+    """The general engine over a mesh: the sharded step bit for bit one
+    device's at the bench's size, then a sharded ring run to DONE."""
+    import torch
+    import torch_programs as tp
+    import bench
+    from interpolation_engine_tpu_torch._shared import io_manager, vm_config
+    from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
+    from interpolation_engine_tpu_torch.ops import interp_kernel as ik
+    from interpolation_engine_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch, unshard)
+    from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
+
+    if torch.cuda.device_count() >= 2:
+        mesh, how = make_mesh(), "one shard on each card"
+    else:
+        mesh, how = make_mesh(devices=["cuda"] * 4), "four shards on cuda:0"
+    log(f"phase 18 mesh [{card}]: {len(mesh)} shards, {how}")
+    cfg = vm_config.VMConfig(**GENERAL_CFG)
+    runner = DeviceRunner(compile_src(bench.adventure_program()), cfg,
+                          device=mesh[0])
+    devices = []
+
+    class OnDevices:
+        @staticmethod
+        def brace_scan(bufs, lengths):
+            devices.append(bufs.device)
+            return scan_mod.brace_scan(bufs, lengths)
+
+    scan_mod.brace_scan.launches = scan_mod.brace_scan_reference.launches = 0
+    one = runner.make_instances(n)
+    many = shard_batch(one, mesh)
+    inner, times = 8, {"one": [], "sharded": []}
+    ik.scan_mod = OnDevices
+    try:
+        for turn in (("one", "sharded"), ("sharded", "one")):
+            for which in turn:
+                sync_all()
+                t0 = time.perf_counter()
+                if which == "one":
+                    one = runner.launch(one, inner)
+                else:
+                    many = runner.launch(many, inner)
+                sync_all()
+                times[which].append((time.perf_counter() - t0) / inner)
+            got = unshard(many)
+            for f, a, b in zip(one._fields, got, one):
+                if not torch.equal(a.to(b.device), b):
+                    raise AssertionError(f"phase 18: field {f} of the "
+                                         f"sharded batch differs")
+    finally:
+        ik.scan_mod = scan_mod
+    if set(devices) != set(mesh):
+        raise AssertionError(f"phase 18: brace scans on {set(devices)}")
+    del one, many, got
+
+    # a sharded ring run: every instance answers its own inputs inside a
+    # parallel block (the LaneRing keyed by global row)
+    def answers(i):
+        return io_manager.IOManager(io_manager.ScriptedBackend(
+            [f"x{i}", f"y{i}"]))
+    src = tp.WAIT_SRC
+    ring = DeviceRunner(compile_src(src), cfg, io_factory=answers,
+                        device=mesh[0])
+    t0 = time.perf_counter()
+    final = ring.run(shard_batch(ring.make_instances(n_ring), mesh))
+    sync_all()
+    ring_s = time.perf_counter() - t0
+    ref = DeviceRunner(compile_src(src), cfg, io_factory=answers,
+                       device=mesh[0])
+    ref_final = ref.run(ref.make_instances(n_ring))
+    got = unshard(final)
+    for f, a, b in zip(got._fields, got, ref_final):
+        if not torch.equal(a.to(b.device), b):
+            raise AssertionError(f"phase 18: field {f} of the sharded ring "
+                                 f"run differs from the unsharded run")
+    res = ring.results(final)
+    for i in sorted({0, 1, n_ring // 2, n_ring - 1}):
+        host = run_host(src, answers(i), tmp)
+        if (res[i].output, res[i].inserts) != (host["output"],
+                                                dict(host["inserts"])):
+            raise AssertionError(f"phase 18: instance {i}: {res[i]} != "
+                                 f"host {host}")
+    for i, r in enumerate(res):
+        if r.status != vm_config.DONE or \
+                r.output != f"a;t0;x=x{i};t1;y=y{i};z":
+            raise AssertionError(f"phase 18: instance {i}: {r}")
+    launches = scan_mod.brace_scan.launches
+    if launches <= 0 or scan_mod.brace_scan_reference.launches:
+        raise AssertionError(f"phase 18: brace-scan launches {launches}")
+
+    def ms(ts):
+        return " and ".join(f"{t * 1e3:.3f}" for t in ts)
+    log(f"phase 18 general adventure over the mesh [{card}]: {n} "
+        f"instances, 2 launches x {inner} steps, every VMBatch field "
+        f"bit-identical to one device after each, brace scans on "
+        f"{len(set(devices))} device(s); ms per step: one device "
+        f"{ms(times['one'])}, sharded {ms(times['sharded'])}")
+    log(f"phase 18 sharded ring [{card}]: parallel_wait at {n_ring} "
+        f"instances, each answering its own inputs, to DONE over the mesh "
+        f"in {ring_s:.3f} s, field for field the unsharded run, outputs "
+        f"the host's; ring_stats {json.dumps(ring.ring_stats)}")
+    return {"launches": launches, "ms_one": times["one"],
+            "ms_sharded": times["sharded"]}
+
+
 def programs() -> dict:
     """Phase 1's programs: the bench's and the port's test programs (the
     program text only)."""
@@ -1671,7 +2133,20 @@ def main() -> int:
         phase13(card, tmp)
         phase14(card, tmp)
         phase15(card, tmp)
-    main_path["max_abs_err"] = max(worst, main_path["max_abs_err"])
+        t_resume = time.perf_counter()
+        resumed = phase16(card, tmp)
+        general_resumed = phase17(card, tmp, resumed["states"],
+                                  resumed["hosts"])
+        general_mesh = phase18(card, tmp)
+        log(f"phases 16-18 {time.perf_counter() - t_resume:.1f} s")
+    # the launches of phases 16-18's main paths join their kernels' counts
+    main_path["launches"] += resumed["launches"]
+    main_path["max_abs_err"] = max(worst, main_path["max_abs_err"],
+                                   resumed["max_abs_err"])
+    general["launches"] += general_resumed["launches"] + \
+        general_mesh["launches"]
+    general["max_abs_err"] = max(general["max_abs_err"],
+                                 general_resumed["max_abs_err"])
     kernels = [
         dict(name="turbo_step_kernel", source=KERNEL_SRC,
              replaces=KERNEL_REPLACES, **main_path),

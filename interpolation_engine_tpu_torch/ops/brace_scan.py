@@ -15,14 +15,20 @@ be held against the kernel on the card. The two agree bit for bit. They replace 
 TPU kernel ``_scan_kernel`` of ``interpolation_engine_tpu/ops/pallas_scan.py``
 in both its per-string and its batched call.
 
-Each function counts its launches in ``.launches``.
+Each function counts its launches in ``.launches``, under a lock: the
+general engine over a mesh calls them from a worker thread per device.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..vm.bytestr import BACKSLASH, BRACE_CLOSE, BRACE_OPEN
+
+
+_COUNT_LOCK = threading.Lock()
 
 
 def kernel_plan(ms: int) -> dict:
@@ -72,7 +78,8 @@ def brace_scan(bufs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"brace_scan_kernel launch failed: CUDA error "
                            f"{rc} ({lib.turbo_error_string(rc).decode()})")
-    brace_scan.launches += 1
+    with _COUNT_LOCK:
+        brace_scan.launches += 1
     return out
 
 
@@ -82,7 +89,8 @@ brace_scan.launches = 0
 def brace_scan_reference(bufs: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
     """The plain version of the kernel, batched torch on any device."""
-    brace_scan_reference.launches += 1
+    with _COUNT_LOCK:
+        brace_scan_reference.launches += 1
     n, ms = bufs.shape
     if ms == 0:
         out = torch.zeros((n, 4), dtype=torch.int32, device=bufs.device)

@@ -81,8 +81,9 @@ from .turbo_tables import build_tables
 NotTurbo = planner.NotTurbo
 DONE, PARKED, RUNNING = vm_config.DONE, vm_config.PARKED, vm_config.RUNNING
 PM_NONE, PM_DRAIN = vm_config.PM_NONE, vm_config.PM_DRAIN
-T_FREE, T_READY, T_WAIT, T_DONE = (vm_config.T_FREE, vm_config.T_READY,
-                                   vm_config.T_WAIT, vm_config.T_DONE)
+T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = (
+    vm_config.T_FREE, vm_config.T_NEW, vm_config.T_READY, vm_config.T_WAIT,
+    vm_config.T_DONE)
 
 # fixed control columns; everything after is computed by _Cols
 C_PC, C_STATUS, C_STEPS, C_OUTLEN = 0, 1, 2, 3
@@ -676,6 +677,124 @@ class TurboEngine:
                 # an in-kernel clear ran after the drain — prefix is dead
                 del self._out_prefix[i]
         return {"inserts": inserts, "output": output}
+
+    # ---- save/load (reference-format state dicts) ----------------------------
+
+    def export_state(self, batch, i: int) -> dict:
+        """Instance i as the reference's runtime-state dict, its spilled
+        output folded in, with the cursor chains rebuilt from (pc, loop
+        columns); inside a parallel block, one chain per lane from the
+        lane columns, which map one to one onto the general engine's
+        thread fields. The same contract as ``DeviceRunner.export_state``,
+        so a turbo save loads on either engine and on the host."""
+        from .driver import emit_cursors, emit_par_cursors
+        sub, _ = self._gather_sub(batch, np.asarray([i]))
+        state = self._decode_row(sub, 0, i)
+        regs, cols = sub["regs"][0], self.cols
+        pc = min(int(regs[C_PC]), self.compiled.n_instr - 1)
+        counters = regs[cols._loops0:cols._loops0 + cols.n_loops]
+        if int(regs[C_PARMODE]) > 0:
+            st = {"pc": int(regs[C_PC]), "status": int(regs[C_STATUS]),
+                  "cur_tid": int(regs[C_CURTID]),
+                  "par_join": int(regs[C_PARJOIN]),
+                  "tpc": [regs[cols.tpc(lane)] for lane in range(cols.nt)],
+                  "tstate": [regs[cols.tstate(lane)]
+                             for lane in range(cols.nt)]}
+            emit_par_cursors(self.compiled, state, st, counters)
+        else:
+            emit_cursors(self.compiled, state, pc, counters)
+        return state
+
+    def load_state(self, state: dict, i: int = None) -> dict:
+        """A reference-format state dict as one turbo row (regs, sbuf, out,
+        meta): the cursor chain resolves to a pc and the for-counters land
+        in the loop columns. An output longer than ``out_width // 2`` goes
+        to instance i's host-side spill. A state saved inside a parallel
+        block re-seeds its lanes as ``IParBegin`` would, at their saved
+        resume pcs (the host re-runs the block: lanes with cursors resume,
+        the others restart)."""
+        from .driver import pc_of_state
+        cols = self.cols
+        counters = np.zeros((max(cols.n_loops, 1),), np.int32)
+        pc, leftovers, par = pc_of_state(self.compiled, state, counters)
+        if leftovers:
+            raise ValueError(
+                f"state has block cursors below a host-op task "
+                f"{sorted(leftovers)}; resume requires the host engine")
+        if par is not None and par["k"] > cols.nt:
+            raise ValueError(
+                f"state resumes a parallel block with {par['k']} lanes; "
+                f"this plan carries {cols.nt}")
+        output = state.get("output", "")
+        if i is not None and \
+                len(output.encode("utf-8")) > self.tcfg.out_width // 2:
+            self._out_prefix[i] = (output, 0)   # a fresh row's clear epoch
+            output = ""
+        row = self._encode_row(dict(state.get("inserts", {})), output, pc, 0)
+        regs = row["regs"]
+        regs[cols._loops0:cols._loops0 + cols.n_loops] = \
+            counters[:cols.n_loops]
+        if par is not None:
+            regs[C_PARMODE] = par["mode"]
+            regs[C_PARJOIN] = par["join_pc"]
+            regs[C_CURTID] = 0
+            regs[C_PC] = par["tpc"][0]
+            for lane in range(cols.nt):
+                live = lane < par["k"]
+                regs[cols.tpc(lane)] = par["tpc"][lane] if live else 0
+                regs[cols.tstate(lane)] = T_NEW if live else T_FREE
+                regs[cols.tparg(lane)] = 0
+        return row
+
+    @staticmethod
+    def _canon(v):
+        """A type-faithful structural key: ``json.dumps`` would merge a
+        tuple with a list, a bool with an int and ``np.int32(3)`` with
+        ``3``, and so accept a state the encoder must reject."""
+        if isinstance(v, dict):
+            return ("d", tuple(sorted((repr(k), TurboEngine._canon(x))
+                                      for k, x in v.items())))
+        if isinstance(v, (list, tuple)):
+            return (type(v).__name__, tuple(TurboEngine._canon(x)
+                                            for x in v))
+        return (type(v).__name__, repr(v))
+
+    def load_batch(self, states: list):
+        """A batch resuming the given reference-format states, one instance
+        each. States are deduplicated by structural identity first (a
+        rollout resumes thousands of instances from a handful of states):
+        the U distinct rows are encoded and uploaded once, then expanded on
+        the device by an index gather; a duplicate with a long output gets
+        its own spill. Under a mesh, a ``ShardedTurboBatch``."""
+        self._reset_run_state()
+        uniq: list = []
+        seen: dict = {}
+        index = []
+        for j, st in enumerate(states):
+            key = repr(self._canon(st))
+            u = seen.get(key)
+            if u is None:
+                u = seen[key] = len(uniq)
+                uniq.append(self.load_state(st, i=j))
+            elif len(st.get("output", "").encode("utf-8")) > \
+                    self.tcfg.out_width // 2:
+                self._out_prefix[j] = (st.get("output", ""), 0)
+            index.append(u)
+        self._n_live = len(states)
+        dev = self.device
+
+        def up(field, axis):
+            return torch.from_numpy(np.stack([r[field] for r in uniq],
+                                             axis=axis)).to(dev)
+        idx = torch.tensor(index, dtype=torch.int64, device=dev)
+        batch = TurboBatch(
+            regs=up("regs", 0).index_select(0, idx),
+            sbuf=up("sbuf", 1).index_select(1, idx),
+            out=up("out", 0).index_select(0, idx),
+            meta=up("meta", 1).index_select(1, idx))
+        if self.mesh is None:
+            return batch
+        return shard_turbo_batch(batch, self.mesh)
 
     # ---- stepping -----------------------------------------------------------
 

@@ -172,8 +172,9 @@ def test_encoding_errors_are_the_jax_package_errors():
 def test_cli_routes_not_turbo_to_the_general_engine(tmp_path, capsys,
                                                     monkeypatch):
     """--engine device: a program the planner accepts goes to the turbo
-    engine at any batch (no batch >= 256 threshold), one it rejects to the
-    general engine; both print what the host CLI prints. The engines run
+    engine at any batch past 1 (no batch >= 256 threshold), one it rejects
+    to the general engine; both print what the host CLI prints (batch 1
+    is the interactive run, ``tests/test_torch_device_menu.py``). The engines run
     on the CPU here, in place of the card."""
     from interpolation_engine_tpu_torch import cli
     made = []
@@ -200,7 +201,7 @@ def test_cli_routes_not_turbo_to_the_general_engine(tmp_path, capsys,
         assert cli.main([str(path)]) == 0
         host = capsys.readouterr().out
         made.clear()
-        assert cli.main(["--engine", "device", "--batch", "1",
+        assert cli.main(["--engine", "device", "--batch", "2",
                          str(path)]) == 0
         assert capsys.readouterr().out == host
         assert made == engines, name

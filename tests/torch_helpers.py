@@ -287,3 +287,45 @@ def _same_snaps(jr, pr) -> None:
 
 def _same_error(e: Exception, port_call) -> None:
     same_error(port_call, e)
+
+
+# ---------------------------------------------------------------------------
+# save and resume: the port's menu-driving backend and its host engine
+# ---------------------------------------------------------------------------
+
+class PortMenuBackend(port.io_manager.ScriptedBackend):
+    """The port's twin of ``tests/test_menu.py``'s MenuScriptedBackend: the
+    ``menu_at_input``-th user_input opens the run's menu (Esc) and waits to
+    be cancelled; an empty script waits too, until cancelled."""
+
+    def __init__(self, responses, menu_at_input: int, run_holder: dict):
+        super().__init__(list(responses))
+        self.n_inputs = 0
+        self.menu_at_input = menu_at_input
+        self.run_holder = run_holder
+
+    async def user_input(self, prompt: str, default: str = "") -> str:
+        self.n_inputs += 1
+        if self.n_inputs == self.menu_at_input:
+            self.run_holder["run"].toggle_menu()
+            await asyncio.Event().wait()
+        if not self.responses:
+            await asyncio.Event().wait()
+        return await super().user_input(prompt, default)
+
+    async def select_index(self, options, description=None) -> int:
+        if not self.responses:
+            await asyncio.Event().wait()
+        return await super().select_index(options, description)
+
+
+def port_host_from_state(src: str, tmp_path, state: dict, responses=()):
+    """The port's host engine resumed from ``state`` (its default_state
+    replaced, line numbers kept: ``torch_programs.with_state``)."""
+    from torch_programs import with_state
+    path = tmp_path / "resumed_host.json5"
+    path.write_text(with_state(src, state))
+    io = port.io_manager
+    port.loader.invalidate_cache()
+    return asyncio.run(port.runtime.async_main(
+        str(path), [], io.IOManager(io.ScriptedBackend(list(responses)))))

@@ -1045,3 +1045,210 @@ def promoted_batch(eng, size: int, n: int):
                    "output": "o" * (k % 64)},
          "pc": 0, "steps": 3, "counters": np.zeros((0,), np.int32),
          "par": None, "epoch": 0}, k) for k in range(n)])
+
+
+# ---------------------------------------------------------------------------
+# save and resume, the device menu and the general engine over a mesh: the
+# JAX package's test programs (copied, so the card-side script has them)
+# ---------------------------------------------------------------------------
+
+# tests/test_turbo.py SAVE_SRC: a user_input between two prints
+SAVE_SRC = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'set', item:'v1', output_name:'a'},
+        {cmd:'print', text:'[{a}]'},
+        {cmd:'user_input', prompt:'pause ', output_name:'b'},
+        {cmd:'print', text:'[{b}]'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# tests/test_device_save_load.py NESTED_SRC: a user_input inside
+# for > serial
+NESTED_SRC = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'print', text:'start;'},
+        {cmd:'for', name_list_map: {item: ['a', 'b', 'c']}, tasks: [
+            {cmd:'print', text:'<{item}'},
+            {cmd:'serial', tasks: [
+                {cmd:'user_input', prompt:'? ', output_name:'ans'},
+                {cmd:'print', text:'={ans}'},
+            ]},
+            {cmd:'print', text:'>'},
+        ]},
+        {cmd:'print', text:';end'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# tests/test_parallel_device.py WAIT_SRC: a parallel_wait whose two lanes
+# each park on a user_input
+WAIT_SRC = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'print', text:'a;'},
+        {cmd:'parallel_wait', tasks: [
+            {cmd:'serial', tasks:[
+                {cmd:'print', text:'t0;'},
+                {cmd:'user_input', prompt:'A? ', output_name:'x'},
+                {cmd:'print', text:'x={x};'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'print', text:'t1;'},
+                {cmd:'user_input', prompt:'B? ', output_name:'y'},
+                {cmd:'print', text:'y={y};'},
+            ]},
+        ]},
+        {cmd:'print', text:'z'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# tests/test_turbo.py PAR_SAVE_SRC: a parallel_wait of pure lanes
+PAR_SAVE_SRC = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'print', text:'pre;'},
+        {cmd:'parallel_wait', tasks:[
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'a1', output_name:'a'},
+                {cmd:'print', text:'A{a};'},
+                {cmd:'set', item:'a2', output_name:'a'},
+                {cmd:'print', text:'B{a};'},
+            ]},
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'bb', output_name:'b'},
+                {cmd:'print', text:'C{b};'},
+            ]},
+        ]},
+        {cmd:'print', text:'end {a}{b}'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# tests/test_turbo.py test_turbo_mid_for_resume: a user_input in a for
+FOR_INPUT = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'for', name_list_map:{q: ['one', 'two', 'three']}, tasks:[
+            {cmd:'user_input', prompt:'{q}? ', output_name:'ans'},
+            {cmd:'print', text:'{q}={ans};'},
+        ]},
+        {cmd:'print', text:'fin'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# a run_task chain into a serial and a for: the chains extend the path
+# without a cursor of their own
+RUN_TASK_CHAIN = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'print', text:'s;'},
+        {cmd:'run_task', task_name:'outer'},
+        {cmd:'print', text:';e'},
+    ],
+    named_tasks: {
+        outer: {cmd:'run_task', task_name:'body'},
+        body: {cmd:'serial', tasks:[
+            {cmd:'print', text:'b;'},
+            {cmd:'for', name_list_map:{q: ['x', 'y']}, tasks:[
+                {cmd:'user_input', prompt:'{q}? ', output_name:'ans'},
+                {cmd:'print', text:'{q}={ans};'},
+            ]},
+        ]},
+    },
+    save_states: {},
+}
+"""
+
+# tests/test_multichip.py SRC: two user_inputs, answered per instance
+MESH_SRC = """
+{
+    default_state: {order_index: 1, inserts: {greet: 'hi'}},
+    order: [
+        {cmd:'print', text:'{greet};'},
+        {cmd:'user_input', prompt:'? ', output_name:'name'},
+        {cmd:'set', item:'{name}!', output_name:'salut'},
+        {cmd:'print', text:'[{salut}]'},
+        {cmd:'user_input', prompt:'again? ', output_name:'more'},
+        {cmd:'print', text:'({more})'},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+
+# tests/test_device_menu.py SRC: the device menu's program
+MENU_SRC = """
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [
+        {cmd:'set', item:'first', output_name:'a'},
+        {cmd:'print', text:'{a} '},
+        {cmd:'user_input', prompt:'> ', output_name:'b'},
+        {cmd:'print', text:'{b}'},
+    ],
+    named_tasks: {},
+    save_states : {
+    },
+}
+"""
+
+
+def with_state(src: str, state: dict) -> str:
+    """The program with ``state`` (a reference-format runtime state, cursor
+    keys and output included) as its ``default_state``, on as many lines
+    as the old one, so every task keeps its line number and so its
+    traceback label: the host engine then starts where the state was
+    saved, as after the menu's Load State."""
+    import json
+    start = src.index("default_state:") + len("default_state:")
+    start = src.index("{", start)
+    depth, end = 0, start
+    for end in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[end], 0)
+        if depth == 0:
+            break
+    old = src[start:end + 1]
+    return src[:start] + json.dumps(state) + "\n" * old.count("\n") + \
+        src[end + 1:]
+
+
+def divergent_states(compiled, slot_of, n: int, classes: int = 8) -> list:
+    """bench.py's divergent cell (``_measure_turbo``, ``divergence=8``):
+    ``n`` states of the program's default inserts plus every key the
+    adventure reads, at ``classes`` top-level order indexes spread over
+    the order."""
+    inserts = dict(compiled.program["default_state"]["inserts"])
+    extra = {"scene": "s", "gen": "g", "hlen": 1}
+    inserts.update({k: v for k, v in extra.items() if k in slot_of})
+    n_top = len(compiled.program["order"])
+    targets = [1 + (k * n_top) // classes for k in range(classes)]
+    return [{"inserts": dict(inserts), "output": "",
+             "order_index": targets[i % classes]} for i in range(n)]
+
+
+def ring_states(compiled, n: int, frac: float = 0.10) -> list:
+    """bench.py's ring cell (``_measure_ring``, ``BENCH_RING_FRAC``): one
+    instance in 1 / frac at ``sel: 'park'``, the rest spinning."""
+    inserts = dict(compiled.program["default_state"]["inserts"])
+    states = []
+    for i in range(n):
+        ins = dict(inserts)
+        if i % max(int(1 / max(frac, 1e-9)), 1) == 0:
+            ins["sel"] = "park"
+        states.append({"inserts": ins, "output": "", "order_index": 1})
+    return states
