@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``interpolation_engine_tpu_torch``) on one CUDA
 card and check it.
 
-    python3 chip_smoke.py      # phases 1-18 and the result lines
+    python3 chip_smoke.py [--seed N]   # phases 1-19 and the result lines
 
 Phases, each of which raises on any failure (the script then exits non-zero
 and prints no result):
@@ -131,7 +131,21 @@ and prints no result):
    every VMBatch field bit-identical to one device, the brace scan on
    every device of the mesh, ms per step of each; then a parallel_wait
    program at 4,096 instances, each answering its own inputs, to DONE over
-   the mesh, field for field the unsharded run, outputs the host's.
+   the mesh, field for field the unsharded run, outputs the host's;
+19. the chat filter: (a) 16,384 chat-shaped streams (``torch_chat.
+   chat_stream``) of 512-8,192 bytes drawn from ``--seed``, padded to 8,192,
+   one in 2,048 opening 20 spans: the chat-filter kernel equal to its plain
+   version on every field of every stream, enumerating and not; 64 sampled
+   streams equal to the host filters fed a character a call, the 20-span
+   streams through ``filter_chat_host`` to the host oracle; the kernel's
+   time queued and the plain version's beside its bound; (b) the chat
+   service's per-stream call (``filter_chat_host``: upload, launch,
+   download) on one 8 KB stream beside the host's incremental filters; (c)
+   the chat programs of ``torch_programs`` (a turn loop, and a
+   ``parallel_wait`` block) at 256 instances through the turbo engine
+   against one local fake chat server, one character an SSE event, with
+   ``IE_TPU_DEVICE_FILTERS=1`` and without: every instance equal to the
+   host, one filter launch a chat call.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -163,6 +177,8 @@ KERNEL_REPLACES = "interpolation_engine_tpu/vm/turbo.py:1879"
 SCAN_SRC = "interpolation_engine_tpu_torch/csrc/brace_scan.cu"
 SCAN_REPLACES = "interpolation_engine_tpu/ops/pallas_scan.py:87"
 SHARDED_REPLACES = "interpolation_engine_tpu/vm/turbo.py:1991"
+FILTER_SRC = "interpolation_engine_tpu_torch/csrc/chat_filter.cu"
+FILTER_REPLACES = "interpolation_engine_tpu/ops/filter_kernel.py:155"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 OPS_PER_S = 67e12             # float32 outside the tensor cores, the same
@@ -2065,6 +2081,249 @@ def phase18(card: str, tmp: str, n: int = 131_072,
             "ms_sharded": times["sharded"]}
 
 
+def filter_batch(n: int, L: int, every: int = 2048):
+    """Phase 19's batch: n chat-shaped streams (``torch_chat.chat_stream``:
+    prose, 1-4 ``<out>`` spans, a ``<think>`` block inside the first) with
+    lengths drawn from 512-L bytes, padded to L; one stream in ``every``
+    opens 20 spans. Returns (streams as bytes, bufs, lengths, the
+    overflowing rows)."""
+    import random
+    import torch_chat as tc
+    rng = random.Random(SEED)
+    over = list(range(0, n, every))
+    raws = [tc.chat_stream(i, rng.randint(512, L), rng,
+                           20 if i % every == 0 else None)
+            for i in range(n)]
+    bufs, lengths = tc.rows(raws, L)
+    return raws, bufs.cuda(), lengths.cuda(), over
+
+
+def filter_bound(lengths, L: int) -> dict:
+    """A filter call must read each stream's bytes within its length and
+    its length, and write the extracted bytes (L a stream), the visual
+    bytes (``visual_width(L)``) and the table (TABLE int32) once; it does at
+    least one operation a byte it reads."""
+    from interpolation_engine_tpu_torch.ops.filter_kernel import (
+        TABLE, visual_width)
+    n = lengths.shape[0]
+    read = int(lengths.clamp(0, L).long().sum())
+    return bound(read + 4 * n + n * L + n * visual_width(L) + 4 * n * TABLE,
+                 read)
+
+
+def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
+            instances: int = 256) -> dict:
+    """The chat filter: the kernel against its plain version and the host
+    at 16,384 streams, both timed; the service's per-stream call beside
+    the host's incremental filters; the chat programs through the turbo
+    engine with the filter on and off, and the kernel against its plain
+    version on each stream the service filtered there, at its shape."""
+    import random
+    import torch
+    import torch_chat as tc
+    from interpolation_engine_tpu_torch._shared import io_manager
+    from interpolation_engine_tpu_torch.core.filters import (
+        InvertedFilter, OutputFilter)
+    from interpolation_engine_tpu_torch.ops import filter_kernel as fk
+    from interpolation_engine_tpu_torch.ops.turbo_step import turbo_step
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        DONE, TurboConfig, TurboEngine)
+
+    # (a) the batch: kernel == plain version on every field of every
+    # stream, 64 sampled streams == the host filters a character a call
+    raws, bufs, lengths, over = filter_batch(n, L)
+    start, stop, hs, he = tc.STREAM_DELIMS
+    worst = 0
+    for enum in (True, False):
+        kw = dict(start=start, stop=stop, hide_start=hs, hide_stop=he,
+                  enumerate_outputs=enum)
+        got = fk.filter_chat_text(bufs, lengths, **kw)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = fk.filter_chat_reference(bufs, lengths, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if enum:
+            t_plain = ev[0].elapsed_time(ev[1]) / 1e3
+        for key in want:
+            if not torch.equal(got[key], want[key]):
+                rows = torch.nonzero((got[key] != want[key]).reshape(
+                    n, -1).any(dim=1))[:, 0].tolist()
+                raise AssertionError(f"phase 19: the kernel's {key} differs "
+                                     f"from the plain version's in rows "
+                                     f"{rows[:10]} (enumerate={enum})")
+        worst = max(worst, max_abs_diff([got[k] for k in want],
+                                        list(want.values())))
+        if enum:
+            main = got
+        del want
+    raw_spans = main["raw_n_spans"].tolist()
+    if [r for r in range(n) if raw_spans[r] > fk.MAX_SPANS] != over:
+        raise AssertionError("phase 19: the streams past 16 spans are not "
+                             "the ones built so")
+    rng = random.Random(SEED)
+    sample = rng.sample([r for r in range(n) if r not in over], 64)
+    t0 = time.perf_counter()
+    for r in sample:
+        raw = raws[r].decode("utf-8", "replace")
+        if raw.encode() != raws[r]:
+            raise AssertionError(f"phase 19: stream {r} is not whole UTF-8")
+        want = fk._char_oracle(raw, start, stop, hs, he, True)
+        if fk.decode_row(main, r) != want:
+            raise AssertionError(f"phase 19: stream {r}: the kernel's result "
+                                 f"is not the host filters'")
+    t_sample = time.perf_counter() - t0
+    oracle = fk.filter_chat_host.oracle_calls
+    for r in over:
+        raw = raws[r].decode("utf-8", "replace")
+        if fk.filter_chat_host(raw, start, stop, hs, he, True) != \
+                fk._char_oracle(raw, start, stop, hs, he, True):
+            raise AssertionError(f"phase 19: stream {r} (past 16 spans) is "
+                                 f"not the host oracle's")
+    if fk.filter_chat_host.oracle_calls - oracle != len(over):
+        raise AssertionError("phase 19: the streams past 16 spans did not "
+                             "take the host oracle")
+    del main
+    calls = 10
+    kw["enumerate_outputs"] = True
+    t_kern = timed(lambda _: fk.filter_chat_text(bufs, lengths, **kw), None,
+                   calls, True) / calls
+    b = filter_bound(lengths, L)
+    log(f"phase 19 chat filter [{card}]: {n} streams of "
+        f"{int(lengths.min())}-{int(lengths.max())} bytes (mean "
+        f"{float(lengths.float().mean()):.0f}) padded to {L}, visual "
+        f"{fk.visual_width(L)} wide; the kernel equals the plain version "
+        f"on every field of every stream (enumerating and not), {len(over)} "
+        f"streams past 16 spans take the host oracle through "
+        f"filter_chat_host, 64 sampled streams equal the host filters fed "
+        f"a character a call ({t_sample:.1f} s); kernel {t_kern * 1e3:.3f} "
+        f"ms/call queued, plain version {t_plain * 1e3:.1f} ms/call; bound "
+        f"{b['bound_ms']:.5f} ms ({b['bound_by']}), the kernel at "
+        f"{b['bound_ms'] / (t_kern * 1e3) * 100:.1f} % of it")
+    del bufs, lengths, got
+
+    # (b) the service's call on one 8 KB stream: upload, launch, download
+    raw = tc.chat_stream(7, 8192, random.Random(SEED)).decode()
+    want = fk._char_oracle(raw, start, stop, hs, he, True)
+    if fk.filter_chat_host(raw, start, stop, hs, he, True) != want:
+        raise AssertionError("phase 19: filter_chat_host on 8 KB differs "
+                             "from the host filters")
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fk.filter_chat_host(raw, start, stop, hs, he, True)
+    t_call = (time.perf_counter() - t0) / reps
+    host_ms = {}
+    for chunk in (1, 4):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            extract = OutputFilter(start, stop, enumerate_outputs=True)
+            hide = InvertedFilter(hs, he)
+            visual = "".join(hide(extract(raw[i:i + chunk]))
+                             for i in range(0, len(raw), chunk))
+        host_ms[chunk] = (time.perf_counter() - t0) / 5 * 1e3
+        if chunk == 1 and (list(extract.outputs), visual) != want:
+            raise AssertionError("phase 19: the host filters differ")
+    log(f"phase 19 one 8 KB stream [{card}]: filter_chat_host (upload, "
+        f"launch, download) {t_call * 1e3:.3f} ms/call; the host's "
+        f"incremental filters {host_ms[1]:.3f} ms a character a call, "
+        f"{host_ms[4]:.3f} ms four characters a call")
+
+    # (c) the chat programs through the turbo engine, the filter on and off;
+    # each distinct stream the service filtered is then held against the
+    # plain version at the (1, L) row filter_chat_host built for it
+    def buffered(i=None):
+        return io_manager.IOManager(io_manager.BufferBackend())
+
+    service_calls = {}
+    real_host = fk.filter_chat_host
+
+    def recording_host(raw, *args):
+        service_calls.setdefault((raw, *args), None)
+        return real_host(raw, *args)
+    # the wrapped function counts its oracle calls under its module name
+    recording_host.oracle_calls = real_host.oracle_calls
+    launches, seconds = 0, {}
+    old_flag = os.environ.pop("IE_TPU_DEVICE_FILTERS", None)
+    fk.filter_chat_host = recording_host
+    try:
+        for name in sorted(tc.CHAT_PROGRAMS):
+            with tc.sse_server(chunk_size=1) as server:
+                src = tc.chat_program(name, server.url)
+                host = run_host(src, buffered(), tmp)
+                want = (host["output"], dict(host["inserts"]))
+                for flag in (True, False):
+                    if flag:
+                        os.environ["IE_TPU_DEVICE_FILTERS"] = "1"
+                    else:
+                        os.environ.pop("IE_TPU_DEVICE_FILTERS", None)
+                    eng = TurboEngine(compile_src(src),
+                                      TurboConfig(**tc.CHAT_SIZES),
+                                      io_factory=buffered, device="cuda")
+                    batch = eng.make_batch(instances)
+                    requests = len(server.requests)
+                    torch.cuda.synchronize()
+                    fk.filter_chat_text.launches = 0
+                    fk.filter_chat_reference.launches = 0
+                    turbo_step.launches = 0
+                    t0 = time.perf_counter()
+                    final = eng.run(batch)
+                    torch.cuda.synchronize()
+                    elapsed = time.perf_counter() - t0
+                    chats = len(server.requests) - requests
+                    got = fk.filter_chat_text.launches
+                    if got != (chats if flag else 0) or \
+                            fk.filter_chat_reference.launches:
+                        raise AssertionError(
+                            f"phase 19 {name}: {chats} chat calls, "
+                            f"{got} filter launches, "
+                            f"{fk.filter_chat_reference.launches} plain")
+                    if eng.ring_stats["escapes"]:
+                        raise AssertionError(f"phase 19 {name}: escapes")
+                    for i, r in enumerate(eng.results(final)):
+                        if r.status != DONE or (r.output, r.inserts) != want:
+                            raise AssertionError(
+                                f"phase 19 {name}: instance {i} (filter "
+                                f"{'on' if flag else 'off'}): {r} != {want}")
+                    launches += got
+                    seconds[(name, flag)] = elapsed
+                    log(f"phase 19 chat program {name}, filter "
+                        f"{'on' if flag else 'off'} [{card}]: {instances} "
+                        f"instances DONE equal to the host, {chats} chat "
+                        f"calls, {got} filter launches, {turbo_step.launches}"
+                        f" step launches, {elapsed:.3f} s; ring_stats "
+                        f"{json.dumps(eng.ring_stats)}")
+    finally:
+        fk.filter_chat_host = real_host
+        real_host.oracle_calls = recording_host.oracle_calls
+        if old_flag is None:
+            os.environ.pop("IE_TPU_DEVICE_FILTERS", None)
+        else:
+            os.environ["IE_TPU_DEVICE_FILTERS"] = old_flag
+    widths = set()
+    for raw, *delims, enum in service_calls:
+        row = fk.host_row(raw, "cuda")
+        widths.add(row[0].shape[1])
+        kw = dict(zip(("start", "stop", "hide_start", "hide_stop"), delims),
+                  enumerate_outputs=enum)
+        got = fk.filter_chat_text(*row, **kw)
+        want = fk.filter_chat_reference(*row, **kw)
+        for key in want:
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"phase 19: on the service's stream "
+                                     f"{raw!r} the kernel's {key} differs "
+                                     f"from the plain version's")
+        worst = max(worst, max_abs_diff([got[k] for k in want],
+                                        list(want.values())))
+    if not service_calls:
+        raise AssertionError("phase 19: the service filtered no stream")
+    log(f"phase 19 the service's streams [{card}]: {len(service_calls)} "
+        f"distinct streams at (1, L) for L in {sorted(widths)}, the kernel "
+        f"equal to the plain version on every field")
+    return {"launches": launches, "ms": t_kern * 1e3,
+            "plain_ms": t_plain * 1e3, "max_abs_err": worst, **b}
+
+
 def programs() -> dict:
     """Phase 1's programs: the bench's and the port's test programs (the
     program text only)."""
@@ -2098,7 +2357,14 @@ def programs() -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    global SEED
+    import argparse
+    parser = argparse.ArgumentParser(description="Drive the PyTorch port "
+                                     "on one CUDA card and check it.")
+    parser.add_argument("--seed", type=int, default=SEED,
+                        help="seed of the generated inputs (default 0)")
+    SEED = parser.parse_args(argv).seed
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2139,6 +2405,9 @@ def main() -> int:
                                   resumed["hosts"])
         general_mesh = phase18(card, tmp)
         log(f"phases 16-18 {time.perf_counter() - t_resume:.1f} s")
+        t_chat = time.perf_counter()
+        chat = phase19(card, tmp)
+        log(f"phase 19 {time.perf_counter() - t_chat:.1f} s")
     # the launches of phases 16-18's main paths join their kernels' counts
     main_path["launches"] += resumed["launches"]
     main_path["max_abs_err"] = max(worst, main_path["max_abs_err"],
@@ -2153,10 +2422,13 @@ def main() -> int:
         dict(name="brace_scan_kernel", source=SCAN_SRC,
              replaces=SCAN_REPLACES, **general, **scan_line),
         dict(name="sharded_turbo_step", source=KERNEL_SRC,
-             replaces=SHARDED_REPLACES, **sharded)]
+             replaces=SHARDED_REPLACES, **sharded),
+        dict(name="chat_filter_kernel", source=FILTER_SRC,
+             replaces=FILTER_REPLACES, **chat)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # no single PyTorch call computes a VM step or the four scan values
+    # no single PyTorch call computes a VM step, the four scan values or
+    # the chat filter
     kernels = [{k: dict(kern, route="cuda", library_ms=None)[k]
                 for k in keys} for kern in kernels]
     log(f"total {time.perf_counter() - t_start:.1f} s")

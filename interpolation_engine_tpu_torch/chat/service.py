@@ -107,19 +107,30 @@ async def run_chat(
     ran_out_of_context = False
     outputs: list[str] = []
     import os as _os
-    # the JAX package's opt-in batch filter path (one device kernel call,
-    # ops/filter_kernel.py, for unvoiced, choice-free chats) is not carried
-    # over: with the flag set the port refuses instead of filtering on the
-    # host behind the caller's back (ROADMAP Queue 1, not carried)
+    # batch fast path: collect the raw stream, then ONE device kernel call
+    # extracts outputs + visual text (ops/filter_kernel.py) instead of a
+    # per-chunk Python state machine per instance. Token-granular filter
+    # semantics (the chunk->0 limit); no live display/TTS incrementality,
+    # so it stays opt-in and off for voiced or choice chats.
     device_filters = (_os.environ.get("IE_TPU_DEVICE_FILTERS") == "1"
                       and choices_list is None and not voice_path)
-    if device_filters:
-        from ..vm.turbo_tables import NotPorted
-        raise NotPorted("IE_TPU_DEVICE_FILTERS=1: the device chat filter "
-                        "(ops/filter_kernel.py) is not ported (ROADMAP "
-                        "Queue 1, not carried: filter_kernel)")
     try:
-        if choices_list is None:
+        if device_filters:
+            async for delta in client.stream_chat(body):
+                if delta.finish_reason == "length":
+                    ran_out_of_context = True
+                if delta.content is None:
+                    continue
+                raw += delta.content
+            from ..ops.filter_kernel import filter_chat_host
+            outputs, visual_output = filter_chat_host(
+                raw, start_str, stop_str, hide_start_str, hide_stop_str,
+                n_outputs > 1)
+            if shown and visual_output:
+                await io.write(visual_output)
+            elif not shown:
+                visual_output = ""
+        elif choices_list is None:
             hide = InvertedFilter(hide_start_str, hide_stop_str)
             extract = OutputFilter(start_str, stop_str,
                                    enumerate_outputs=n_outputs > 1)

@@ -96,6 +96,11 @@ def load() -> ctypes.CDLL:
     lib.brace_scan_launch.restype = i
     lib.brace_scan_plan.argtypes = [i, ints]
     lib.brace_scan_plan.restype = i
+    lib.chat_filter_launch.argtypes = [p, p] + [i] * 3 + [p] + [i] * 5 \
+        + [p] * 4
+    lib.chat_filter_launch.restype = i
+    lib.chat_filter_layout.argtypes = [ints]
+    lib.chat_filter_layout.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib

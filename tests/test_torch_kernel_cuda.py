@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import bench
+import torch_chat as tc
 import torch_programs as tp
 
 from interpolation_engine_tpu_torch.ops.turbo_step import (
@@ -433,3 +434,96 @@ def general_cuda_equals_cpu(src, cuda):
     for k, (a, b) in enumerate(zip(cpu, card)):
         for f in a:
             assert (a[f] == b[f]).all(), (k, f)
+
+
+# ---------------------------------------------------------------------------
+# the chat-filter kernel (csrc/chat_filter.cu)
+# ---------------------------------------------------------------------------
+
+def filter_held_to_plain(bufs, lengths, delims, enum) -> dict:
+    """Kernel and plain version on the same rows on the card: every field
+    equal byte for byte, one launch counted."""
+    from interpolation_engine_tpu_torch.ops.filter_kernel import (
+        filter_chat_reference, filter_chat_text)
+    start, stop, hs, he = delims
+    kw = dict(start=start, stop=stop, hide_start=hs, hide_stop=he,
+              enumerate_outputs=enum)
+    before = filter_chat_text.launches
+    got = filter_chat_text(bufs, lengths, **kw)
+    want = filter_chat_reference(bufs, lengths, **kw)
+    torch.cuda.synchronize()
+    assert filter_chat_text.launches == before + 1
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    return got
+
+
+@pytest.mark.parametrize("case", range(len(tc.FILTER_CASES)))
+def test_chat_filter_kernel_equals_plain_on_curated_cases(case, cuda):
+    raw, start, stop, hs, he, enum = tc.FILTER_CASES[case]
+    bufs, lengths = tc.rows([raw])
+    filter_held_to_plain(bufs.to(cuda), lengths.to(cuda),
+                         (start, stop, hs, he), enum)
+
+
+@pytest.mark.parametrize("text", range(len(tc.CUT_TEXTS)))
+def test_chat_filter_kernel_equals_plain_cut_at_every_length(text, cuda):
+    raw, delims = tc.CUT_TEXTS[text]
+    bufs, lengths = tc.cut_rows(raw)
+    for enum in (False, True):
+        filter_held_to_plain(bufs.to(cuda), lengths.to(cuda), delims, enum)
+
+
+@pytest.mark.parametrize("seed", [991, 5, 6])
+def test_chat_filter_kernel_equals_plain_on_the_fuzz(seed, cuda):
+    for (start, stop, hs, he, enum), raws in tc.by_delimiters(
+            tc.fuzz_streams(seed)).items():
+        bufs, lengths = tc.rows(raws)
+        filter_held_to_plain(bufs.to(cuda), lengths.to(cuda),
+                             (start, stop, hs, he), enum)
+
+
+@pytest.mark.parametrize("n,L,skip", [(1, 64, 0), (33, 513, 1),
+                                      (4099, 1024, 0), (2048, 8192, 0),
+                                      (1000, 8193, 1)])
+def test_chat_filter_kernel_on_chat_streams(n, L, skip, cuda):
+    """Chat-shaped streams (one in nine opening 20 spans) with lengths in
+    [-3, L + 5]; with ``skip`` the rows are ``bufs[skip:]``, whose base is
+    not 16-byte aligned when L is odd."""
+    import numpy as np
+    rng = random.Random(n * 7 + L)
+    lens = np.random.default_rng(n + L).integers(-3, L + 6, n + skip)
+    raws = [tc.chat_stream(i, min(max(int(k), 0), L), rng,
+                           None if i % 9 else 20)
+            for i, k in enumerate(lens)]
+    bufs, _ = tc.rows(raws, L)
+    bufs = bufs.to(cuda)[skip:]
+    lengths = torch.from_numpy(lens[skip:].astype(np.int32)).to(cuda)
+    assert bufs.is_contiguous()
+    for enum in (False, True):
+        filter_held_to_plain(bufs, lengths, tc.STREAM_DELIMS, enum)
+    filter_held_to_plain(bufs, lengths, ("", "", "<think>", "</think>"), True)
+
+
+def test_chat_filter_kernel_on_long_delimiters_and_non_ascii(cuda):
+    start, stop = "<" + "s" * 38 + ">", "[" + "e" * 298 + "]"
+    raws = [start + "kept ✓" + stop + "out" + start + "tail" + stop[:150],
+            start + "x" + stop[:299], "no delimiter", start + stop,
+            "héllo " + start + "日本語" + stop + "☃"]
+    bufs, lengths = tc.rows(raws)
+    for enum in (False, True):
+        filter_held_to_plain(bufs.to(cuda), lengths.to(cuda),
+                             (start, stop, "<h" * 20, "</h" * 30), enum)
+
+
+def test_chat_filter_host_on_the_card_equals_the_cpu(cuda):
+    from interpolation_engine_tpu_torch.ops.filter_kernel import (
+        filter_chat_host)
+    streams = list(tc.FILTER_CASES) + [
+        ("".join(f"<o>s{k}</o>," for k in range(20)), "<o>", "</o>", "",
+         "", True)] + tc.fuzz_streams(991, 40)
+    before = filter_chat_host.oracle_calls
+    for stream in streams:
+        assert filter_chat_host(*stream) == filter_chat_host(*stream,
+                                                             device="cpu")
+    assert filter_chat_host.oracle_calls == before + 2

@@ -1252,3 +1252,59 @@ def ring_states(compiled, n: int, frac: float = 0.10) -> list:
             ins["sel"] = "park"
         states.append({"inserts": ins, "output": "", "order_index": 1})
     return states
+
+
+# chat through the ring: each program names the chat server as
+# ``%(url)s`` (``torch_chat.chat_program``); ``torch_chat.reply`` answers
+# each turn with two or three ``<out>`` spans, a ``<think>`` block inside
+# the first and a trailing stop prefix that the filters hold back
+CHAT_TURNS = """
+{
+    default_state: {order_index: 1, inserts: {turn: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{turn} + 1', output_name:'turn'},
+        {cmd:'chat', output_name:'reply', n_outputs:2,
+         start_str:'<out>', stop_str:'</out>',
+         hide_start_str:'<think>', hide_stop_str:'</think>',
+         messages:[{role:'user', content:'turn {turn}'}]},
+        {cmd:'print', text:'|'},
+        {cmd:'goto_map', text:'{turn}', target_maps:[
+            {'3': '@end'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'fin {turn}'},
+    ],
+    named_tasks: {}, save_states: {},
+    completion_args: {model: 'fake', api_url: '%(url)s'},
+}
+"""
+
+CHAT_PARALLEL = """
+{
+    default_state: {order_index: 1, inserts: {turn: 0}},
+    order: [
+        {cmd:'label', name:'@loop'},
+        {cmd:'math', input:'{turn} + 1', output_name:'turn'},
+        {cmd:'parallel_wait', tasks:[
+            {cmd:'chat', output_name:'a', n_outputs:2,
+             start_str:'<out>', stop_str:'</out>',
+             hide_start_str:'<think>', hide_stop_str:'</think>',
+             messages:[{role:'user', content:'lane a turn {turn}'}]},
+            {cmd:'serial', tasks:[
+                {cmd:'set', item:'b{turn}', output_name:'tag'},
+                {cmd:'chat', output_name:'b', n_outputs:2, shown:false,
+                 start_str:'<out>', stop_str:'</out>',
+                 hide_start_str:'<think>', hide_stop_str:'</think>',
+                 messages:[{role:'user', content:'lane {tag}'}]},
+                {cmd:'print', text:'<{tag}>'},
+            ]},
+        ]},
+        {cmd:'goto_map', text:'{turn}', target_maps:[
+            {'2': '@end'}, {'*': '@loop'}]},
+        {cmd:'label', name:'@end'},
+        {cmd:'print', text:'fin {turn}'},
+    ],
+    named_tasks: {}, save_states: {},
+    completion_args: {model: 'fake', api_url: '%(url)s'},
+}
+"""
