@@ -3,6 +3,8 @@
 card and check it.
 
     python3 chip_smoke.py [--seed N]   # phases 1-19 and the result lines
+    python3 chip_smoke.py --turn TREE  # phase 13 and the chat filter's
+                                       # times with TREE's package
 
 Phases, each of which raises on any failure (the script then exits non-zero
 and prints no result):
@@ -105,7 +107,11 @@ and prints no result):
    2,048-byte sibling: those 1,024 instances escape to one general-engine
    batch (its lane IO through the shared LaneRing), every instance equal
    to the host; then the same from the mesh engine (phase 11's mesh) at
-   4,096 instances; the escape runner's ``ring_stats``;
+   4,096 instances; the escape runner's ``ring_stats``; then a program of
+   151 byte rows at that width (``torch_programs.many_rows_program``),
+   whose 2048-wide sibling does not fit a block's shared memory: no sibling,
+   the 256 of 4,096 instances that answer 600 bytes escape, every instance
+   equal to the host;
 16. resume on the turbo engine: bench.py's divergent batch (the adventure
    at 40 turns, phase 5's config, 131,072 instances from 8 states at
    spread order indexes) through ``load_batch`` (U = 8, its seconds), the
@@ -138,7 +144,11 @@ and prints no result):
    version on every field of every stream, enumerating and not; 64 sampled
    streams equal to the host filters fed a character a call, the 20-span
    streams through ``filter_chat_host`` to the host oracle; the kernel's
-   time queued and the plain version's beside its bound; (b) the chat
+   time queued and the plain version's beside its bound, and its time on
+   inputs that leave out one part of its work at a time; the kernel's
+   attributes; the kernel equal to its plain version on one stream in
+   ``host_row``'s (1, L) row, 8 KB at L = 16,384 and about 100 KB of 20
+   spans at L = 131,072, and its time queued on the 8 KB row; (b) the chat
    service's per-stream call (``filter_chat_host``: upload, launch,
    download) on one 8 KB stream beside the host's incremental filters; (c)
    the chat programs of ``torch_programs`` (a turn loop, and a
@@ -1344,10 +1354,11 @@ def phase12(card: str, tmp: str, single: dict, n: int = 16_384) -> None:
 
 
 def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
-            checked: int = 2) -> None:
+            checked: int = 2) -> dict:
     """Promotion mid-run at the bench's width-512 shape: the sibling's first
     ``checked`` kernel launches held against the plain version, then its
-    launch timed."""
+    launch timed. Returns the ring's wall time and the sibling's launch
+    (s, ms)."""
     import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager as iom
@@ -1439,6 +1450,7 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
         f"bound {sib_bound['bound_ms']:.4f} ms ({sib_bound['bound_by']}), "
         f"the kernel at {sib_bound['bound_ms'] / k_ms * 100:.1f} % of it; "
         f"{tile_line(tables, first, wide.tile)}")
+    return {"ring_s": elapsed, "sibling_ms": k_ms}
 
 
 def host_with_choice(src: str, tmp: str, pick: int) -> dict:
@@ -1658,6 +1670,44 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
             f"{brace_scan.launches} brace-scan launches in {elapsed:.3f} "
             f"s; the escape runner's ring_stats "
             f"{json.dumps(runner.ring_stats)}")
+    # a program of 151 byte rows at the same width: one instance of its
+    # 2048-wide sibling does not fit a block's shared memory, so no sibling
+    # is built and the instances that outgrow their slot escape
+    import torch_programs as tp
+    src = tp.many_rows_program()
+    answers = {False: ["short"], True: ["Z" * 600]}
+    want = {}
+    for big, said in answers.items():
+        host = run_host(src, iom.IOManager(iom.ScriptedBackend(list(said))),
+                        tmp)
+        want[big] = (host["output"], dict(host["inserts"]), DONE)
+    size = 4096
+    eng = TurboEngine(compile_src(src), tcfg, io_factory=lambda i:
+                      iom.IOManager(iom.ScriptedBackend(
+                          list(answers[i % every == 0]))), device="cuda")
+    tile = tile_line(eng.tables, eng.make_batch(1), tcfg.tile)
+    turbo_step.launches = 0
+    final, elapsed, _, _ = ring_run(eng, size)
+    escaped = list(range(0, size, every))
+    if eng._wide_tcfg() is not None or \
+            sorted(eng._escape_results) != escaped or \
+            len(eng.escape_runners) != 1 or turbo_step.launches <= 0:
+        raise AssertionError(
+            f"phase 15 many rows: sibling {eng._wide_tcfg()}, "
+            f"{len(eng._escape_results)} escaped, "
+            f"{len(eng.escape_runners)} runners, step kernel "
+            f"{turbo_step.launches}")
+    for i, r in enumerate(eng.results(final)):
+        if (r.output, r.inserts, r.status) != want[i % every == 0]:
+            raise AssertionError(f"phase 15 many rows: instance {i}: "
+                                 f"{r} != {want[i % every == 0]}")
+    log(f"phase 15 escapes past a block's shared memory [{card}]: "
+        f"{eng.cols.n_rows} byte rows at width {tcfg.width} "
+        f"({tile}), no "
+        f"sibling; {size} instances, every {every}th answering 600 bytes: "
+        f"{len(escaped)} escaped to one general-engine batch on "
+        f"{eng.escape_runners[0].device}, every instance DONE equal to the "
+        f"host, {turbo_step.launches} step-kernel launches, {elapsed:.3f} s")
 
 
 def run_host_from(src: str, state: dict, io, tmp: str) -> dict:
@@ -2111,6 +2161,92 @@ def filter_bound(lengths, L: int) -> dict:
                  read)
 
 
+def service_stream() -> str:
+    """The chat service's shape: one chat stream of 8 KB."""
+    import random
+    import torch_chat as tc
+    return tc.chat_stream(7, 8192, random.Random(SEED)).decode()
+
+
+def filter_times(bufs, lengths, calls: int = 10, reps: int = 50) -> dict:
+    """The chat filter's times on the card, with whichever package the
+    working directory holds (a parent tree's too): the kernel queued on
+    phase 19's batch (``bufs``, ``lengths``) and on one 8 KB stream in
+    ``host_row``'s row (16,384 bytes) (``ms``, ``row_ms``), and
+    ``filter_chat_host`` on that stream (upload, launch, downloads;
+    ``host_ms``), enumerating, ms a call."""
+    import torch_chat as tc
+    from interpolation_engine_tpu_torch.ops import filter_kernel as fk
+    start, stop, hs, he = tc.STREAM_DELIMS
+    kw = dict(start=start, stop=stop, hide_start=hs, hide_stop=he,
+              enumerate_outputs=True)
+    raw = service_stream()
+    row = fk.host_row(raw, "cuda")
+    # warm: the delimiters' upload and the outputs' first allocation wait
+    # for the card, which would end the queue
+    fk.filter_chat_text(bufs, lengths, **kw)
+    fk.filter_chat_text(*row, **kw)
+    ms = timed(lambda _: fk.filter_chat_text(bufs, lengths, **kw), None,
+               calls, True) / calls * 1e3
+    row_ms = timed(lambda _: fk.filter_chat_text(*row, **kw), None, reps,
+                   True) / reps * 1e3
+    fk.filter_chat_host(raw, start, stop, hs, he, True)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fk.filter_chat_host(raw, start, stop, hs, he, True)
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    return {"ms": ms, "row_ms": row_ms, "host_ms": host_ms,
+            "row_bound_ms": filter_bound(row[1], row[0].shape[1])["bound_ms"]}
+
+
+def filter_parts(bufs, lengths, calls: int = 10) -> dict:
+    """The chat filter kernel at phase 19's batch shape on inputs that
+    leave out one part of its work at a time, ms a call queued: every
+    length 0 (the padding and the table alone), passthrough (every byte
+    kept, no candidate, no hide pass), the extract pass alone (no hide
+    delimiters), and the whole filter."""
+    import torch
+    import torch_chat as tc
+    from interpolation_engine_tpu_torch.ops import filter_kernel as fk
+    start, stop, hs, he = tc.STREAM_DELIMS
+    zero = torch.zeros_like(lengths)
+    parts = {"padding": (zero, ("", "", "", "")),
+             "passthrough": (lengths, ("", "", "", "")),
+             "extract": (lengths, (start, stop, "", "")),
+             "whole": (lengths, (start, stop, hs, he))}
+    out = {}
+    for name, (lens, d) in parts.items():
+        kw = dict(zip(("start", "stop", "hide_start", "hide_stop"), d),
+                  enumerate_outputs=True)
+        fk.filter_chat_text(bufs, lens, **kw)
+        out[name] = timed(lambda _: fk.filter_chat_text(bufs, lens, **kw),
+                          None, calls, True) / calls * 1e3
+    return out
+
+
+def turn(tree: str) -> int:
+    """``--turn TREE``: with the package of the checkout TREE (this one,
+    or a parent's unpacked beside it), phase 13 (its checks, its ring wall
+    time and the sibling's launch), then phase 19's batch and
+    ``filter_times`` and ``filter_parts`` on it, as one JSON line. Run on
+    two trees in turns in one call, it compares them on one card."""
+    tree = os.path.abspath(tree)
+    sys.path[:0] = [tree, os.path.join(tree, "tests")]
+    from interpolation_engine_tpu_torch.ops import build
+    if not build.__file__.startswith(tree + os.sep):
+        raise AssertionError(f"imported {build.__file__}, not from {tree}")
+    build.load()
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        promotion = phase13(card, tmp)
+    _, bufs, lengths, _ = filter_batch(16_384, 8192)
+    times = filter_times(bufs, lengths)
+    times["parts"] = filter_parts(bufs, lengths)
+    print(json.dumps({"tree": tree, "card": card, "phase13": promotion,
+                      **times}))
+    return 0
+
+
 def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
             instances: int = 256) -> dict:
     """The chat filter: the kernel against its plain version and the host
@@ -2184,11 +2320,10 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
         raise AssertionError("phase 19: the streams past 16 spans did not "
                              "take the host oracle")
     del main
-    calls = 10
-    kw["enumerate_outputs"] = True
-    t_kern = timed(lambda _: fk.filter_chat_text(bufs, lengths, **kw), None,
-                   calls, True) / calls
+    times = filter_times(bufs, lengths)
+    t_kern = times["ms"] / 1e3
     b = filter_bound(lengths, L)
+    parts = filter_parts(bufs, lengths)
     log(f"phase 19 chat filter [{card}]: {n} streams of "
         f"{int(lengths.min())}-{int(lengths.max())} bytes (mean "
         f"{float(lengths.float().mean()):.0f}) padded to {L}, visual "
@@ -2196,23 +2331,55 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
         f"on every field of every stream (enumerating and not), {len(over)} "
         f"streams past 16 spans take the host oracle through "
         f"filter_chat_host, 64 sampled streams equal the host filters fed "
-        f"a character a call ({t_sample:.1f} s); kernel {t_kern * 1e3:.3f} "
+        f"a character a call ({t_sample:.1f} s); kernel {t_kern * 1e3:.5f} "
         f"ms/call queued, plain version {t_plain * 1e3:.1f} ms/call; bound "
         f"{b['bound_ms']:.5f} ms ({b['bound_by']}), the kernel at "
         f"{b['bound_ms'] / (t_kern * 1e3) * 100:.1f} % of it")
+    log(f"phase 19 chat filter by part [{card}]: " + ", ".join(
+        f"{name} {ms:.5f}" for name, ms in parts.items()) + " ms/call "
+        "queued (padding: every length 0; passthrough: no delimiters; "
+        "extract: no hide delimiters)")
     del bufs, lengths, got
+    at = fk.kernel_attributes(0)
+    log(f"chat_filter_kernel, a block a stream: {at['registers']} "
+        f"registers, {at['local_bytes']} local bytes a thread, "
+        f"{at['static_shared_bytes']} static shared bytes and "
+        f"{at['threads']} threads a block, tiles of {at['tile']} bytes")
+
+    # (a) one stream in host_row's (1, L) row, kernel == plain on every
+    # field: the service's 8 KB (L = 16,384), and about 100 KB of 20 spans
+    # over many tiles (L = 131,072)
+    for size, spans, enums in ((8192, None, (True, False)),
+                               (100_000, 20, (True,))):
+        raw = tc.chat_stream(size, size, random.Random(SEED), spans)
+        row = fk.host_row(raw.decode(), "cuda")
+        for enum in enums:
+            kw = dict(start=start, stop=stop, hide_start=hs, hide_stop=he,
+                      enumerate_outputs=enum)
+            got = fk.filter_chat_text(*row, **kw)
+            want = fk.filter_chat_reference(*row, **kw)
+            for key in want:
+                if not torch.equal(got[key], want[key]):
+                    raise AssertionError(
+                        f"phase 19: on the (1, {row[0].shape[1]}) row the "
+                        f"kernel's {key} differs from the plain version's "
+                        f"(enumerate={enum})")
+            worst = max(worst, max_abs_diff([got[k] for k in want],
+                                            list(want.values())))
+        log(f"phase 19 one stream of {int(row[1][0])} bytes in a (1, "
+            f"{row[0].shape[1]}) row [{card}]: the kernel equals the plain "
+            f"version on every field ({int(got['raw_n_spans'][0])} spans)")
+    log(f"phase 19 the kernel alone on one 8 KB stream in a (1, 16384) row "
+        f"[{card}]: {times['row_ms']:.5f} ms/call queued; bound "
+        f"{times['row_bound_ms']:.6f} ms")
 
     # (b) the service's call on one 8 KB stream: upload, launch, download
-    raw = tc.chat_stream(7, 8192, random.Random(SEED)).decode()
+    raw = service_stream()
     want = fk._char_oracle(raw, start, stop, hs, he, True)
     if fk.filter_chat_host(raw, start, stop, hs, he, True) != want:
         raise AssertionError("phase 19: filter_chat_host on 8 KB differs "
                              "from the host filters")
-    reps = 50
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fk.filter_chat_host(raw, start, stop, hs, he, True)
-    t_call = (time.perf_counter() - t0) / reps
+    t_call = times["host_ms"] / 1e3
     host_ms = {}
     for chunk in (1, 4):
         t0 = time.perf_counter()
@@ -2364,11 +2531,18 @@ def main(argv=None) -> int:
                                      "on one CUDA card and check it.")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the generated inputs (default 0)")
-    SEED = parser.parse_args(argv).seed
+    parser.add_argument("--turn", metavar="TREE",
+                        help="run only phase 13 and the chat filter's "
+                        "times, with the package of the checkout TREE, and "
+                        "print one JSON line")
+    args = parser.parse_args(argv)
+    SEED = args.seed
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.turn:
+        return turn(args.turn)
     progs = programs()
     import torch_programs as tp
     from interpolation_engine_tpu_torch.ops import build

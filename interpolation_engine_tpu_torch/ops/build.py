@@ -101,6 +101,8 @@ def load() -> ctypes.CDLL:
     lib.chat_filter_launch.restype = i
     lib.chat_filter_layout.argtypes = [ints]
     lib.chat_filter_layout.restype = i
+    lib.chat_filter_attributes.argtypes = [ints]
+    lib.chat_filter_attributes.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,8 +9,9 @@ of ``OutputFilter`` and the visual text of ``hide(extract(delta))``, as
 
 ``filter_chat_text(bufs, lengths, ...)`` filters a batch of streams, rows of
 ``bufs`` (B, L) uint8 with ``lengths`` (B,) int32: on CUDA tensors it
-launches ``csrc/chat_filter.cu`` (built by ``ops/build.py``; one thread a
-stream) or raises; on CPU tensors, and only there, it runs
+launches ``csrc/chat_filter.cu`` (built by ``ops/build.py``; a block a
+stream, in tiles) or raises; on CPU
+tensors, and only there, it runs
 ``filter_chat_reference``, a loop over byte positions vectorized over the
 batch, which works on any device so that it can be held against the kernel
 on the card. The two agree byte for byte. They replace the JAX package's
@@ -102,12 +103,32 @@ def _library():
     import ctypes
     from .build import load
     lib = load()
-    layout = (ctypes.c_int * 2)()
+    layout = (ctypes.c_int * 3)()   # MAX_SPANS, TABLE, the tile
     lib.chat_filter_layout(layout)
     if (layout[0], layout[1]) != (MAX_SPANS, TABLE):
         raise RuntimeError(f"chat_filter.cu has MAX_SPANS, TABLE = "
-                           f"{tuple(layout)}, the wrapper {MAX_SPANS, TABLE}")
+                           f"{layout[0], layout[1]}, the wrapper "
+                           f"{MAX_SPANS, TABLE}")
     return lib
+
+
+def kernel_attributes(device) -> dict:
+    """The compiled filter kernel's attributes on CUDA ``device``
+    (``cudaFuncGetAttributes``): registers and local (stack) bytes a
+    thread, static shared bytes and threads a block, and the tile (bytes of
+    a stream staged at a time)."""
+    import ctypes
+    lib = _library()
+    layout = (ctypes.c_int * 3)()
+    lib.chat_filter_layout(layout)
+    vals = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = lib.chat_filter_attributes(vals)
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error "
+                           f"{rc} ({lib.turbo_error_string(rc).decode()})")
+    return dict(zip(("registers", "local_bytes", "static_shared_bytes",
+                     "threads", "tile"), (*vals, layout[2])))
 
 
 def filter_chat_text(bufs, lengths, *, start, stop, hide_start, hide_stop,

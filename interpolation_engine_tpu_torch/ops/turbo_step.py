@@ -187,6 +187,95 @@ def _r16(nbytes: int) -> int:
     return -(-nbytes // 16) * 16
 
 
+@dataclass(frozen=True)
+class TileShape:
+    """What one launch puts in a block's shared memory: the program
+    tables' bytes (``flat``, the literals, a list literal's scratch row)
+    and the batch's row shapes (regs (N, regw), sbuf (rows, N, width), out
+    (N, out_width), meta (planes, N, cells))."""
+    flat_bytes: int
+    lits_bytes: int
+    scratch_bytes: int
+    regw: int
+    rows: int
+    width: int
+    out_width: int
+    planes: int
+    cells: int
+
+    @classmethod
+    def of(cls, tables: StepTables, shapes) -> "TileShape":
+        """From a plan's step tables and a batch's (regs, sbuf, out, meta)
+        shapes."""
+        (_, regw), (rows, _, width), (_, out_width), (planes, _, cells) = \
+            shapes
+        return cls(4 * tables.flat.numel(), tables.lits.numel(),
+                   tables.host.scratch_bytes, regw, rows, width, out_width,
+                   planes, cells)
+
+
+def _strides(shape: TileShape):
+    """One instance's bytes in each region (tile_plan's layout): the
+    register row and a meta plane's row take an odd number of words; a
+    byte row (string, output, scratch, render) its bytes rounded up to 16
+    plus ``ROW_PAD``. Returns (regs, meta, sbuf, out, scr, buf)."""
+    def odd_words(n):
+        return 4 * (n | 1)
+
+    def byte_row(n):
+        return _r16(n) + ROW_PAD if n else 0
+    return (odd_words(shape.regw), odd_words(shape.cells),
+            byte_row(shape.width), byte_row(shape.out_width),
+            byte_row(shape.scratch_bytes), byte_row(shape.width))
+
+
+def instance_bytes(shape: TileShape) -> int:
+    """Shared-memory bytes one instance takes in a tile."""
+    regs, meta, sbuf, out, scr, buf = _strides(shape)
+    return (regs + shape.planes * meta + shape.rows * sbuf + out + scr
+            + buf)
+
+
+def _layout(shape: TileShape, t: int, lits_shared: bool):
+    """The regions' offsets for a tile of t instances, and its bytes."""
+    regs, meta, sbuf, out, scr, buf = _strides(shape)
+    off = {}
+    at = PROG_BYTES
+    for name, size in (("flat", shape.flat_bytes),
+                       ("lits", shape.lits_bytes if lits_shared else 0),
+                       ("regs", t * regs), ("meta", shape.planes * t * meta),
+                       ("sbuf", shape.rows * t * sbuf), ("out", t * out),
+                       ("scr", t * scr), ("buf", t * buf)):
+        off[name] = at
+        at += _r16(size)
+    return off, at
+
+
+def _fit(shape: TileShape, tile: int, shared: SharedMemory):
+    """(T, literals staged): the most instances, up to ``tile`` and
+    ``MAX_TILE``, that fit a block's share when ``BLOCKS_PER_SM`` blocks
+    share an SM (fewer blocks when not even one instance fits); T is 0 when
+    one instance fits in no block."""
+    per_instance = instance_bytes(shape)
+    for bps in range(BLOCKS_PER_SM, 0, -1):
+        budget = min(shared.per_block, shared.per_sm // bps - shared.reserved)
+        lits_shared = 8 * _r16(shape.lits_bytes) <= budget
+        fixed = _layout(shape, 0, lits_shared)[1]
+        t = min(tile, MAX_TILE, max(budget - fixed, 0) // per_instance)
+        while t > 0 and _layout(shape, t, lits_shared)[1] > budget:
+            t -= 1
+        if t > 0:
+            return t, lits_shared
+    return 0, False
+
+
+def fits_one_instance(shape: TileShape, shared: SharedMemory) -> bool:
+    """Whether the step kernel can launch a batch of ``shape`` on a card
+    with ``shared`` memory: one instance fits in a block beside the
+    tables."""
+    return _fit(shape, 1, shared)[0] > 0
+
+
 def tile_plan(tables: StepTables, batch, tile: int = 128,
               shared: SharedMemory = H100_SHARED) -> TilePlan:
     """The kernel's tile on a card with ``shared`` memory: T instances per
@@ -207,58 +296,25 @@ def tile_plan(tables: StepTables, batch, tile: int = 128,
     The literals are staged when they take at most an eighth of the
     block's budget; else they stay in device memory. Raises ValueError
     when one instance does not fit beside the tables."""
-    regs, sbuf, out, meta = batch
-    regw, (rows, _, W), ow = regs.shape[1], sbuf.shape, out.shape[1]
-    planes, cells = meta.shape[0], meta.shape[2]
-    flat_bytes, lits_bytes = 4 * tables.flat.numel(), tables.lits.numel()
-
-    def odd_words(n):
-        return 4 * (n | 1)
-
-    def byte_row(n):
-        return _r16(n) + ROW_PAD if n else 0
-    regs_is, meta_is = odd_words(regw), odd_words(cells)
-    sbuf_is, out_is, buf_is = byte_row(W), byte_row(ow), byte_row(W)
-    scr_is = byte_row(tables.host.scratch_bytes)
-    per_instance = (regs_is + planes * meta_is + rows * sbuf_is + out_is
-                    + scr_is + buf_is)
-
-    def layout(t, lits_shared):
-        off = {}
-        at = PROG_BYTES
-        for name, size in (("flat", flat_bytes),
-                           ("lits", lits_bytes if lits_shared else 0),
-                           ("regs", t * regs_is),
-                           ("meta", planes * t * meta_is),
-                           ("sbuf", rows * t * sbuf_is), ("out", t * out_is),
-                           ("scr", t * scr_is), ("buf", t * buf_is)):
-            off[name] = at
-            at += _r16(size)
-        return off, at
-
-    for bps in range(BLOCKS_PER_SM, 0, -1):
-        budget = min(shared.per_block, shared.per_sm // bps - shared.reserved)
-        lits_shared = 8 * _r16(lits_bytes) <= budget
-        fixed = layout(0, lits_shared)[1]
-        t = min(tile, MAX_TILE, max(budget - fixed, 0) // per_instance)
-        while t > 0 and layout(t, lits_shared)[1] > budget:
-            t -= 1
-        if t > 0:
-            break
-    else:
+    shape = TileShape.of(tables, [t.shape for t in batch])
+    t, lits_shared = _fit(shape, tile, shared)
+    if t == 0:
         raise ValueError(
-            f"one instance needs {per_instance} bytes of shared memory beside "
-            f"{fixed} bytes of tables; a block has {shared.per_block}")
-    off, total = layout(t, lits_shared)
+            f"one instance needs {instance_bytes(shape)} bytes of shared "
+            f"memory beside {_layout(shape, 0, False)[1]} bytes of tables; "
+            f"a block has {shared.per_block}")
+    off, total = _layout(shape, t, lits_shared)
+    regs_is, meta_is, sbuf_is, out_is, scr_is, buf_is = _strides(shape)
     return TilePlan(
-        tile=t, smem=total, flat_off=off["flat"], flat_bytes=flat_bytes,
-        lits_off=off["lits"] if lits_shared else -1, lits_bytes=lits_bytes,
-        regs_off=off["regs"], regs_is=regs_is, meta_off=off["meta"],
-        meta_is=meta_is, meta_ps=t * meta_is, sbuf_off=off["sbuf"],
-        sbuf_is=sbuf_is, sbuf_ps=t * sbuf_is, out_off=off["out"],
-        out_is=out_is, scr_off=off["scr"], scr_is=scr_is,
-        buf_off=off["buf"], buf_is=buf_is, rows=rows, planes=planes,
-        cells=cells)
+        tile=t, smem=total, flat_off=off["flat"],
+        flat_bytes=shape.flat_bytes,
+        lits_off=off["lits"] if lits_shared else -1,
+        lits_bytes=shape.lits_bytes, regs_off=off["regs"], regs_is=regs_is,
+        meta_off=off["meta"], meta_is=meta_is, meta_ps=t * meta_is,
+        sbuf_off=off["sbuf"], sbuf_is=sbuf_is, sbuf_ps=t * sbuf_is,
+        out_off=off["out"], out_is=out_is, scr_off=off["scr"], scr_is=scr_is,
+        buf_off=off["buf"], buf_is=buf_is, rows=shape.rows,
+        planes=shape.planes, cells=shape.cells)
 
 
 def launch_plan(tables: StepTables, batch, tile: int = 128) -> TilePlan:

@@ -664,8 +664,11 @@ def run_program_on_device(filepath: str, args: list, io, batch: int = 1,
     every batch to the general engine. Otherwise every program the turbo
     planner accepts runs on the turbo engine at any batch: the JAX package
     tries it only from 256 instances up, because its TPU compile takes
-    minutes, but this kernel builds in seconds. A kernel that fails fails
-    the run: nothing falls back to another engine."""
+    minutes, but this kernel builds in seconds. A batch whose instance
+    does not fit a block's shared memory on the card is ``NotTurbo``, like
+    a program the planner rejects: the general engine runs it on the same
+    card. A kernel that fails fails the run: nothing falls back to another
+    engine."""
     context.CTX.program_dir = os.path.dirname(os.path.abspath(filepath))
     program, _state = loader.load(filepath)
     compiled = compile_program(program)

@@ -71,8 +71,9 @@ import torch
 from .._shared import (context, events, executor, io_manager, isa, planner,
                        vm_config)
 from .._shared import lanering as lanering_mod
-from ..ops.turbo_step import (MAX_WIDTH, StepTables, sharded_turbo_step,
-                              turbo_step)
+from ..ops.turbo_step import (MAX_WIDTH, StepTables, TileShape,
+                              fits_one_instance, shared_memory,
+                              sharded_turbo_step, turbo_step)
 from ..parallel.mesh import ShardedTurboBatch, make_mesh, shard_turbo_batch
 from . import state as vs
 from .state import T_INT, T_LIST, T_STR
@@ -420,7 +421,11 @@ class TurboEngine:
     LaneRing's global instance ids (the row itself by default).
     ``promote_factor`` is how much wider (width, out_width, elem_width) the
     sibling batch is that takes instances outgrowing their slots; 0 turns
-    promotion off, as in that sibling itself.
+    promotion off, as in that sibling itself. On a card, a ``tcfg`` whose
+    one instance does not fit a block's shared memory beside the step
+    tables raises ``NotTurbo`` (``step_fits``), as a program the planner
+    rejects does; the check runs where the tables are built, so tables
+    handed in have passed it.
     """
 
     def __init__(self, compiled, tcfg: TurboConfig = None, io_factory=None,
@@ -440,10 +445,11 @@ class TurboEngine:
         self.device = torch.device(device) if mesh is None else self.mesh[0]
         devices = self.mesh or (self.device,)
         if step_tables is None:
-            lits = _LitTable(self.tcfg.width)
-            lits.collect(self.plan.instrs)
-            step_tables = tables_on(build_tables(self.plan, self.cols, lits),
-                                    devices)
+            host = _plan_tables(self.plan, self.cols, self.tcfg)
+            if not step_fits(self.device, self.cols, self.tcfg, host):
+                raise NotTurbo(f"one instance at {self.tcfg} does not fit a "
+                               f"block's shared memory on {self.device}")
+            step_tables = tables_on(host, devices)
         elif set(step_tables) != set(devices):
             raise ValueError(f"step_tables on {list(step_tables)}, the "
                              f"engine on {list(dict.fromkeys(devices))}")
@@ -477,6 +483,9 @@ class TurboEngine:
         self._migrated: set = set()
         # the general-engine runners of this run's escapes
         self.escape_runners: list = []
+        # the promotion sibling, decided at the first promotion:
+        # (TurboConfig, its host TurboTables) or (None, None)
+        self._wide = None
         self._wide_tables = None    # the siblings' StepTables, built once
         # the vectorized fast park path (read as the JAX package reads it)
         self._fast_enabled = os.environ.get("IE_TPU_FAST_RING", "1") != "0"
@@ -509,13 +518,11 @@ class TurboEngine:
 
         self._n_live = n
         self._reset_run_state()
-        batch = TurboBatch(
-            regs=bcast(row["regs"][None], (n, self.cols.regw)),
-            sbuf=bcast(row["sbuf"][:, None, :],
-                       (self.cols.n_rows, n, self.tcfg.width)),
-            out=bcast(row["out"][None], (n, self.tcfg.out_width)),
-            meta=bcast(row["meta"][:, None, :],
-                       (len(self.cols.list_ord), n, 3 * self.cols.E)))
+        regs, sbuf, out, meta = batch_shapes(self.cols, self.tcfg, n)
+        batch = TurboBatch(regs=bcast(row["regs"][None], regs),
+                           sbuf=bcast(row["sbuf"][:, None, :], sbuf),
+                           out=bcast(row["out"][None], out),
+                           meta=bcast(row["meta"][:, None, :], meta))
         if self.mesh is None:
             return batch
         return shard_turbo_batch(batch, self.mesh)
@@ -1311,17 +1318,27 @@ class TurboEngine:
 
     def _wide_tcfg(self):
         """The promotion sibling's TurboConfig, or None when there is no
-        sibling: promotion is off, or its slots are wider than the step
-        takes on this engine's device."""
+        sibling: promotion is off, or the step does not take the sibling on
+        this engine's device (its slots are wider than the kernel's, or one
+        instance does not fit a block's shared memory). Decided at the
+        first call; the host tables built for the fit are the sibling's."""
+        if self._wide is not None:
+            return self._wide[0]
+        self._wide = (None, None)
         f, t = self.promote_factor, self.tcfg
         if not f or f <= 1:
             return None
         limit = step_max_width(self.device)
         if limit is not None and t.width * f > limit:
             return None
-        return TurboConfig(tile=t.tile, width=t.width * f,
+        wide = TurboConfig(tile=t.tile, width=t.width * f,
                            out_width=t.out_width * f, k_steps=t.k_steps,
                            list_cap=t.list_cap, elem_width=t.elem_width * f)
+        cols = _make_cols(self.plan, wide)
+        host = _plan_tables(self.plan, cols, wide)
+        if step_fits(self.device, cols, wide, host):
+            self._wide = (wide, host)
+        return self._wide[0]
 
     async def _flush_promotions(self) -> None:
         """Run every queued promotion in one sibling batch, ``promote_factor``
@@ -1330,8 +1347,8 @@ class TurboEngine:
         (an instance keeps the backend that already answered it) and fast
         path switch, and promotion off. The siblings' step tables are built
         once. What even the sibling cannot hold, or every record when the
-        card's kernel cannot take the sibling's width, is queued for an
-        escape."""
+        card's kernel cannot take the sibling (``_wide_tcfg``), is queued
+        for an escape."""
         if not self._promote_states:
             return
         tcfg = self._wide_tcfg()
@@ -1339,13 +1356,14 @@ class TurboEngine:
             self._escape_states.update(self._promote_states)
             self._promote_states.clear()
             return
+        if self._wide_tables is None:
+            self._wide_tables = tables_on(self._wide[1], (self.device,))
         kept: list = []
         wide = TurboEngine(
             self.compiled, tcfg, io_factory=lambda r: self._io_for(kept[r]),
             device=self.device, plan=self.plan, lanering=self._lanering,
             step_tables=self._wide_tables, promote_factor=0)
         wide._fast_enabled = self._fast_enabled
-        self._wide_tables = wide.step_tables
         rows = []
         for i in sorted(self._promote_states):
             rec = self._promote_states.pop(i)
@@ -1844,6 +1862,31 @@ class TurboEngine:
                 status=int(host["regs"][i, C_STATUS]),
                 steps=int(host["regs"][i, C_STEPS])))
         return out
+
+
+def _plan_tables(plan, cols, tcfg: TurboConfig):
+    """The plan's host ``TurboTables`` at ``cols`` and ``tcfg``."""
+    lits = _LitTable(tcfg.width)
+    lits.collect(plan.instrs)
+    return build_tables(plan, cols, lits)
+
+
+def batch_shapes(cols: _Cols, tcfg: TurboConfig, n: int) -> tuple:
+    """The shapes of a batch of n instances: regs, sbuf, out, meta."""
+    return ((n, cols.regw), (cols.n_rows, n, tcfg.width),
+            (n, tcfg.out_width), (len(cols.list_ord), n, 3 * cols.E))
+
+
+def step_fits(device, cols: _Cols, tcfg: TurboConfig, host) -> bool:
+    """Whether the step kernel takes a batch of ``tcfg`` on ``device``: on
+    a card, one instance fits in a block's shared memory beside the step
+    tables (``host``, the plan's TurboTables at ``cols`` and ``tcfg``); the
+    plain version on the CPU has no limit."""
+    if torch.device(device).type != "cuda":
+        return True
+    shape = TileShape.of(StepTables.on(host, "cpu"),
+                         batch_shapes(cols, tcfg, 1))
+    return fits_one_instance(shape, shared_memory(device))
 
 
 def step_max_width(device) -> Optional[int]:

@@ -1,15 +1,24 @@
 """A rehearsal of the chat-filter kernel (``csrc/chat_filter.cu``) on the CPU.
 
-The kernel's per-stream function (``filter_stream``: the extract pass, the
-hide pass in place, the zero padding) compiles with g++ under a small header
-that defines the CUDA qualifiers away and stands in for ``uint4`` and
-``make_uint4``. The harness runs it for every stream as the kernel's threads
-would (one thread a stream, no barrier, no shared memory). The outputs start
-as garbage, as ``torch.empty`` leaves them, with a guard past each end that
-must stay untouched, and every field must equal ``filter_chat_reference``
-byte for byte: the JAX package's curated cases and its fuzz
-(``tests/test_filter_kernel.py``), batches of mixed lengths, non-ASCII text,
-long delimiters, more than 16 spans, clamped lengths and unaligned rows.
+The kernel's block (``filter_block``: the extract pass and the hide pass,
+each in tiles of ``TILE`` bytes, then the stored tail, the padding and the
+table) compiles with g++ under a small header that defines the CUDA
+qualifiers away and stands in for ``uint4``, ``make_uint4``, ``atomicOr``
+and ``__ffs``. Its phases are per-thread functions with barriers only
+between them; on the host ``EACH`` runs a phase for every thread of the
+block in turn, as the barriers order them. The harness runs one block a
+stream on shared memory filled with garbage, with a guard past its end.
+The outputs start as garbage, as ``torch.empty`` leaves them, with a guard
+past each end that must stay untouched, and every field must equal
+``filter_chat_reference`` byte for byte: the JAX package's curated cases
+and its fuzz (``tests/test_filter_kernel.py``), batches of mixed lengths,
+non-ASCII text, long delimiters, more than 16 spans, clamped lengths and
+unaligned rows. The tile cases (streams of several tiles, each of the four
+delimiters and a hold-back across a tile boundary, dense candidates, widths
+that are not a multiple of 16, ``host_row``'s width, 40 spans over several
+tiles) must also equal the JAX package's ``filter_chat_text``, jitted on
+the CPU, on every field of every row; all but a 300-byte delimiter, whose
+JAX compile takes minutes (it grows with the delimiter's length).
 """
 
 import ctypes
@@ -32,6 +41,8 @@ CSRC = Path(fk.__file__).resolve().parent.parent / "csrc"
 
 HARNESS = r"""
 #include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
 #define __device__
 #define __host__
 #define __forceinline__ inline
@@ -41,10 +52,34 @@ static inline uint4 make_uint4(unsigned x, unsigned y, unsigned z,
   uint4 v = {x, y, z, w};
   return v;
 }
+static inline unsigned atomicOr(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p |= v;
+  return old;
+}
+static inline int __ffs(int x) { return __builtin_ffs(x); }
 #include "chat_filter.cu"
 
-// The kernel's launch, a stream at a time (what each thread does).
-// 0: done; -1: arguments the launch refuses.
+// The kernel's launch, a stream at a time on its own shared memory: the
+// block runs each phase for every thread in turn (EACH), as the barriers
+// order them, on shared memory filled with garbage, with a guard past its
+// end.
+static int run(const FilterArgs& a) {
+  const size_t guard = 64, size = sizeof(Block) + guard;
+  uint8_t* sm = (uint8_t*)aligned_alloc(16, (size + 15) / 16 * 16);
+  int rc = 0;
+  for (int r = 0; r < a.n && rc == 0; ++r) {
+    memset(sm, 0xA5, size);
+    filter_block(a, r, *reinterpret_cast<Block*>(sm));
+    for (size_t j = sizeof(Block); j < size; ++j)
+      if (sm[j] != 0xA5) rc = -2;
+  }
+  free(sm);
+  return rc;
+}
+
+// 0: done; -1: arguments the launch refuses; -2: a block wrote past its
+// shared memory.
 extern "C" int rehearse(const uint8_t* bufs, const int* lengths, int n,
                         int L, int W, const uint8_t* delims, int start_len,
                         int stop_len, int hs_len, int he_len, int enumerate,
@@ -64,8 +99,7 @@ extern "C" int rehearse(const uint8_t* bufs, const int* lengths, int n,
   a.ext = ext;
   a.vis = vis;
   a.table = table;
-  for (int r = 0; r < n; ++r) filter_stream(a, r);
-  return 0;
+  return run(a);
 }
 """
 
@@ -96,7 +130,7 @@ def rehearsal(tmp_path_factory):
 
 
 def rehearse(lib, bufs, lengths, delims, enum, offset: int = 0) -> dict:
-    """The kernel's outputs, from outputs filled with garbage; the rows
+    """The kernel's outputs from outputs filled with garbage; the rows
     ``offset`` bytes past an aligned base, the outputs too."""
     n, L = bufs.shape
     W = fk.visual_width(L)
@@ -123,26 +157,71 @@ def rehearse(lib, bufs, lengths, delims, enum, offset: int = 0) -> dict:
         torch.from_numpy(table[:n * fk.TABLE].reshape(n, fk.TABLE)))
 
 
-def held(lib, bufs, lengths, delims, enum, offset: int = 0) -> dict:
-    got = rehearse(lib, bufs, lengths, delims, enum, offset)
+def jax_rows(bufs, lengths, delims, enum) -> dict:
+    """The JAX package's ``filter_chat_text`` (jitted on the CPU, one row a
+    call, ``out_size = 2 L + 256``) on every row, as the port's fields:
+    ``visual`` cut to ``visual_width(L)``, past which JAX's is 0."""
+    import jax.numpy as jnp
+    from interpolation_engine_tpu.ops import filter_kernel as jfk
+    L = bufs.shape[1]
+    W = fk.visual_width(L)
+    start, stop, hs, he = (x.encode() if isinstance(x, str) else bytes(x)
+                           for x in delims)
+    outs = []
+    for buf, n in zip(bufs.numpy(), lengths.tolist()):
+        out = jfk.filter_chat_text(
+            jnp.asarray(buf), jnp.int32(n), start=start, stop=stop,
+            hide_start=hs, hide_stop=he, enumerate_outputs=enum,
+            out_size=2 * L + 256)
+        out = {k: np.asarray(v) for k, v in out.items()}
+        assert not out["visual"][W:].any()
+        out["visual"] = out["visual"][:W]
+        outs.append(out)
+    return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def held(lib, bufs, lengths, delims, enum, offset: int = 0,
+         jax: bool = False) -> dict:
+    """The kernel equal to the plain version on every field; with ``jax``
+    also to the JAX package's ``filter_chat_text``."""
     start, stop, hs, he = delims
     want = fk.filter_chat_reference(bufs, lengths, start=start, stop=stop,
                                     hide_start=hs, hide_stop=he,
                                     enumerate_outputs=enum)
+    got = rehearse(lib, bufs, lengths, delims, enum, offset)
     for key in want:
         if not torch.equal(got[key], want[key]):
             bad = torch.nonzero((got[key] != want[key]).reshape(
                 got[key].shape[0], -1).any(dim=1))[:, 0].tolist()
-            raise AssertionError(f"{key} differs in rows {bad}: kernel "
-                                 f"{got[key][bad[0]].tolist()} plain "
-                                 f"{want[key][bad[0]].tolist()}")
+            raise AssertionError(
+                f"{key} differs in rows {bad}: kernel "
+                f"{got[key][bad[0]].tolist()} plain "
+                f"{want[key][bad[0]].tolist()}")
+    if jax:
+        for key, value in jax_rows(bufs, lengths, delims, enum).items():
+            bad = [r for r in range(len(value))
+                   if not np.array_equal(got[key][r].numpy(), value[r])]
+            assert not bad, f"{key} differs from JAX's in rows {bad}"
     return got
 
 
+def layout(lib) -> list:
+    """MAX_SPANS, TABLE and the tile."""
+    out = (ctypes.c_int * 3)()
+    lib.chat_filter_layout(out)
+    return list(out)
+
+
 def test_layout_is_the_wrappers(rehearsal):
-    out = (ctypes.c_int * 2)()
-    rehearsal.chat_filter_layout(out)
+    out = layout(rehearsal)
     assert (out[0], out[1]) == (fk.MAX_SPANS, fk.TABLE) == (16, 35)
+    assert out[2] == 16 * 128
+
+
+@pytest.fixture(scope="module")
+def tile(rehearsal):
+    """The kernel's tile: bytes of a stream staged at a time."""
+    return layout(rehearsal)[2]
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
@@ -252,3 +331,163 @@ def test_rehearsed_chat_shaped_streams(rehearsal):
     for enum in (False, True):
         got = held(rehearsal, bufs, lengths, STREAM_DELIMS, enum)
     assert int(got["raw_n_spans"].max()) > 16
+
+
+# ---- the tiles --------------------------------------------------------------
+
+def prose(n: int, seed: int = 0) -> str:
+    """n bytes of ASCII text with no delimiter byte in it."""
+    unit = f"words {seed} and more words, "
+    return (unit * (n // len(unit) + 1))[:n]
+
+
+def test_rehearsed_streams_of_several_tiles(rehearsal, tile):
+    """Chat streams of 4-6 tiles, one in three opening 20 spans, in rows
+    whose width is no multiple of 16, aligned and not: every piece of
+    state crosses tiles (shown, the consumed delimiter's end, the spans,
+    the outputs' staged tails)."""
+    rng = random.Random(11)
+    raws = [chat_stream(i, rng.randint(4 * tile, 6 * tile), rng,
+                        None if i % 3 else 20) for i in range(6)]
+    bufs, lengths = rows(raws, 6 * tile + 5)
+    for enum, offset in ((False, 0), (True, 0), (True, 3)):
+        got = held(rehearsal, bufs, lengths, STREAM_DELIMS, enum, offset,
+                   jax=True)
+    assert int(got["raw_n_spans"].max()) == 20
+
+
+@pytest.mark.parametrize("which", range(4),
+                         ids=["start", "stop", "hide_start", "hide_stop"])
+def test_rehearsed_delimiter_straddling_a_tile_boundary(which, rehearsal,
+                                                        tile):
+    """The delimiter begins k bytes before the first and the second tile
+    boundary, for every k from 0 to its length: the match reads past the
+    tile. The hide delimiters run over the intermediate stream, which in
+    passthrough is the stream itself; with the extract delimiters on as
+    well, over a stream shifted by the consumed start and the marker."""
+    d = STREAM_DELIMS[which]
+    raws = []
+    for k in range(len(d) + 1):
+        text = ""
+        for boundary in (tile, 2 * tile):
+            if which == 0:    # start: a span opens across the boundary
+                text += prose(boundary - k - len(text)) + d + "kept</out>"
+            elif which == 1:  # stop: a span closes across it
+                text += "<out>"
+                text += prose(boundary - k - len(text)) + d
+            elif which == 2:  # hide_start: a hidden block opens across it
+                text += prose(boundary - k - len(text)) + d + "x</think>"
+            else:             # hide_stop: a hidden block closes across it
+                text += "<think>"
+                text += prose(boundary - k - len(text)) + d
+        raws.append(text + prose(40, k))
+    bufs, lengths = rows(raws, 3 * tile)
+    passthrough = ("", "", "<think>", "</think>")
+    for enum in (False, True):
+        got = held(rehearsal, bufs, lengths,
+                   STREAM_DELIMS if which < 2 else passthrough, enum,
+                   jax=True)
+        if which < 2:
+            assert got["n_spans"].tolist() == [2] * len(raws)
+    if which >= 2:  # the same texts inside one span: shifted by 5 - 3
+        wrapped = ["<out>" + r for r in raws]
+        bufs, lengths = rows(wrapped, 3 * tile)
+        held(rehearsal, bufs, lengths, STREAM_DELIMS, True, jax=True)
+        # a short span, whose intermediate stream the kernel keeps whole in
+        # shared memory: the delimiter k bytes before its tile boundary
+        # there (after the 3-byte marker "1. ")
+        short = []
+        for k in range(len(d) + 1):
+            lead = "" if which == 2 else "<think>"
+            body = lead + prose(tile - k - 3 - len(lead)) + d
+            short.append("<out>" + body + "x</think>" * (which == 2)
+                         + prose(200, k))
+        bufs, lengths = rows(short, 2 * tile)
+        held(rehearsal, bufs, lengths, STREAM_DELIMS, True, jax=True)
+
+
+def test_rehearsed_holdback_straddling_a_tile_boundary(rehearsal, tile):
+    """A stream that ends, shown, in the first m bytes of the pending
+    delimiter, begun k bytes before a tile boundary, for every m and k: the
+    held bytes were staged, some in the tile before. Then a 300-byte stop
+    whose 250-byte prefix ends a stream across the boundary, and a
+    hide_start prefix at the end of the visual text."""
+    stop = "</out>"
+    raws = ["<out>" + prose(tile - 5 - k) + stop[:m]
+            for m in range(1, len(stop)) for k in range(m + 1)]
+    bufs, lengths = rows(raws, 2 * tile + 3)
+    for enum in (False, True):
+        got = held(rehearsal, bufs, lengths, STREAM_DELIMS, enum,
+                   jax=True)
+    assert (got["span_len"][:, 0] == torch.tensor(
+        [tile - 5 - k for m in range(1, len(stop))
+         for k in range(m + 1)])).all()
+    long_stop = "[" + "e" * 298 + "]"
+    raws = ["<s>" + prose(tile - 3 - k) + long_stop[:250]
+            for k in (0, 1, 100, 249, 250)]
+    bufs, lengths = rows(raws, 2 * tile)
+    # (not held to JAX: its compile grows with the delimiter's length)
+    held(rehearsal, bufs, lengths, ("<s>", long_stop, "", ""), True)
+    raws = [prose(tile - k) + "<think>"[:m] for m in range(1, 7)
+            for k in range(m + 1)]
+    bufs, lengths = rows(raws, 2 * tile)
+    held(rehearsal, bufs, lengths, ("", "", "<think>", "</think>"), False,
+         jax=True)
+
+
+def test_rehearsed_dense_candidates(rehearsal, tile):
+    """Candidates at every byte, over three tiles: one-byte delimiters that
+    are the text's only byte (a span a byte pair), back-to-back delimiters
+    (empty spans, far past 16), overlapping matches inside consumed bytes,
+    text of the delimiters' first byte that never matches whole, and
+    delimiters that begin with a zero byte."""
+    n = 2 * tile + 37
+    cases = [("<" * n, ("<", "<", "", "")),
+             ("<" * n, ("<", "<<", "<", "<<")),
+             ("<o></o>" * (n // 7), ("<o>", "</o>", "", "")),
+             ("<o>x</o>" * (n // 8), ("<o>", "</o>", "x", "</")),
+             ("a" * n, ("aa", "aaa", "a", "aa")),
+             ("\0a" * (n // 2), ("\0", "a", "a\0", "\0\0")),
+             ("<" * n, STREAM_DELIMS)]
+    for text, delims in cases:
+        bufs, lengths = rows([text, text[:tile + 1], text[:tile - 1]],
+                             3 * tile)
+        for enum in (False, True):
+            held(rehearsal, bufs, lengths, delims, enum, jax=True)
+
+
+@pytest.mark.parametrize("extra", [1, 5, 15])
+def test_rehearsed_widths_not_a_multiple_of_16(extra, rehearsal, tile):
+    """Rows of k tiles and a few bytes, streams cut at and next to the
+    tile boundaries and at the row's end, aligned and not."""
+    L = 2 * tile + extra
+    rng = random.Random(extra)
+    cuts = [0, 1, tile - 1, tile, tile + 1, 2 * tile - 1, 2 * tile, L]
+    raws = [chat_stream(i, c, rng) for i, c in enumerate(cuts)]
+    bufs, lengths = rows(raws, L)
+    for enum, offset in ((True, 0), (False, 7)):
+        held(rehearsal, bufs, lengths, STREAM_DELIMS, enum, offset,
+             jax=True)
+
+
+def test_rehearsed_one_stream_at_host_rows_width(rehearsal):
+    """The chat service's call: one 8 KB stream in ``host_row``'s row of
+    16,384 bytes, the shape chip_smoke.py times."""
+    raw = chat_stream(7, 8192, random.Random(0)).decode()
+    bufs, lengths = fk.host_row(raw, "cpu")
+    assert tuple(bufs.shape) == (1, 16384)
+    for enum in (False, True):
+        held(rehearsal, bufs, lengths, STREAM_DELIMS, enum, jax=True)
+
+
+def test_rehearsed_more_than_16_spans_over_several_tiles(rehearsal, tile):
+    """40 spans over five tiles: the table clips at 16 and raw_n_spans
+    counts on; an enumerated stream leaves the spans past 16 out."""
+    raws = ["".join(f"<out>{prose(150 + j, k)}{k}</out>{prose(60)}"
+                    for k in range(40)) for j in (0, 7)]
+    bufs, lengths = rows(raws)
+    for enum in (False, True):
+        got = held(rehearsal, bufs, lengths, STREAM_DELIMS, enum,
+                   jax=True)
+    assert got["raw_n_spans"].tolist() == [40, 40]
+    assert got["n_spans"].tolist() == [16, 16]

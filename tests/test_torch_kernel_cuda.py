@@ -237,6 +237,71 @@ def test_sibling_past_the_kernel_width_escapes_on_the_card(cuda, tmp_path,
                                          dict(host["inserts"]))
 
 
+def host_run(src, answers, tmp_path, capsys) -> dict:
+    import asyncio
+    from interpolation_engine_tpu_torch._shared import io_manager as iom
+    from interpolation_engine_tpu_torch._shared import runtime
+    path = tmp_path / "prog.json5"
+    path.write_text(src)
+    host = asyncio.run(runtime.async_main(
+        str(path), [], iom.IOManager(iom.ScriptedBackend(list(answers)))))
+    capsys.readouterr()
+    return host
+
+
+def test_sibling_past_a_blocks_shared_memory_escapes_on_the_card(
+        cuda, tmp_path, capsys):
+    """The bench's width-512 cell on a program of 151 byte rows: one
+    instance of its 2048-wide sibling does not fit a block's shared memory,
+    so no sibling is built (not the tile plan's ValueError at its first
+    launch); the instances whose answer outgrows the slot escape to one
+    general-engine batch on the card, and every instance finishes equal to
+    the host."""
+    from interpolation_engine_tpu_torch._shared import io_manager as iom
+    from interpolation_engine_tpu_torch.vm.turbo import DONE
+    src = tp.many_rows_program()
+    answers = {0: ["Z" * 600], 1: ["short"]}
+    eng = TurboEngine(compile_src(src), TurboConfig(
+        width=512, elem_width=128, out_width=512, list_cap=12),
+        io_factory=lambda i: iom.IOManager(iom.ScriptedBackend(
+            list(answers[i % 2]))), device=cuda)
+    assert eng._wide_tcfg() is None
+    before = turbo_step.launches
+    res = eng.results(eng.run(eng.make_batch(6)))
+    assert turbo_step.launches > before
+    assert sorted(eng._escape_results) == [0, 2, 4]
+    assert [r.instance_ids for r in eng.escape_runners] == [[0, 2, 4]]
+    assert eng.escape_runners[0].device == cuda
+    hosts = [host_run(src, answers[k], tmp_path, capsys) for k in (0, 1)]
+    for i, r in enumerate(res):
+        assert r.status == DONE
+        assert (r.output, r.inserts) == (hosts[i % 2]["output"],
+                                         dict(hosts[i % 2]["inserts"]))
+
+
+def test_base_config_past_a_blocks_shared_memory_runs_on_the_general_engine(
+        cuda, tmp_path, capsys):
+    """20 strings and 20 lists of 24 elements at 2048 as the base config
+    (141 byte rows): the turbo engine refuses it (NotTurbo) and
+    run_program_on_device runs it on the general engine on the card (its
+    default VMConfig holds the 41 inserts), printing what the host
+    prints."""
+    from interpolation_engine_tpu_torch._shared import io_manager as iom
+    from interpolation_engine_tpu_torch.vm import driver
+    from interpolation_engine_tpu_torch.vm.turbo import NotTurbo
+    src = tp.many_rows_program(20)
+    wide = TurboConfig(width=2048, elem_width=512, out_width=2048,
+                       list_cap=24)
+    with pytest.raises(NotTurbo, match="shared memory"):
+        TurboEngine(compile_src(src), wide, device=cuda)
+    host = host_run(src, ["hello"], tmp_path, capsys)
+    path = tmp_path / "prog.json5"
+    assert driver.run_program_on_device(
+        str(path), [], iom.IOManager(iom.ScriptedBackend(["hello"] * 4)),
+        batch=4, tcfg=wide, device=cuda) == 0
+    assert capsys.readouterr().out.strip() == host["output"].strip()
+
+
 def test_fast_ring_and_promotion_on_the_card_equal_the_cpu(cuda):
     """race-io through the fast park path, and an instance promoted to its
     768-byte sibling mid-run: on the card, through the kernel only, equal

@@ -8,6 +8,9 @@ even the sibling cannot hold escapes to one batch of the general engine
 import asyncio
 
 import pytest
+import torch
+
+import bench
 
 import torch_programs as tp
 from torch_helpers import (compile_port, compile_src, fast_ring, run_host,
@@ -17,6 +20,8 @@ from interpolation_engine_tpu.io.manager import IOManager, ScriptedBackend
 from interpolation_engine_tpu.vm import turbo as jax_turbo
 from interpolation_engine_tpu.vm.config import DONE
 from interpolation_engine_tpu_torch import _shared as port
+from interpolation_engine_tpu_torch.ops import turbo_step as ts
+from interpolation_engine_tpu_torch.vm import driver
 from interpolation_engine_tpu_torch.vm import turbo as pt
 
 SIZES = dict(tile=8, width=64, out_width=192, k_steps=24)
@@ -235,3 +240,117 @@ def test_sibling_past_the_kernel_width_escapes(monkeypatch, tmp_path,
     eng, _ = agree(tp.WIDE_VALUE, lambda i: [BIG], 2, tmp_path, capsys)
     assert sorted(eng._escape_results) == [0, 1]
     assert [r.instance_ids for r in eng.escape_runners] == [[0, 1]]
+
+
+# the bench's width-512 cell (BENCH_WIDTH=512 BENCH_ELEM=128 BENCH_OUT=512)
+BENCH_512 = dict(width=512, elem_width=128, out_width=512, list_cap=12)
+
+
+def card_limits(monkeypatch):
+    """An H100's limits on the CPU: the kernel's widest slot and a block's
+    shared memory (the card's own figures come from the card)."""
+    monkeypatch.setattr(pt, "step_max_width", lambda device: ts.MAX_WIDTH)
+    monkeypatch.setattr(pt, "shared_memory", lambda device: ts.H100_SHARED)
+
+
+BENCH_PROGRAMS = {"many_rows": tp.many_rows_program,
+                  "adventure": bench.adventure_program,
+                  "race_io": bench.race_io_program,
+                  "spine": lambda: bench.BENCH_PROGRAM,
+                  "ring": lambda: bench.RING_PROGRAM}
+
+
+def bench_engine(name, device="cpu"):
+    """The program ``name`` at the bench's width-512 cell, built on the
+    CPU and then typed as ``device``'s (nothing launches)."""
+    eng = pt.TurboEngine(compile_port(BENCH_PROGRAMS[name]()),
+                         pt.TurboConfig(**BENCH_512), device="cpu")
+    eng.device = torch.device(device)
+    return eng
+
+
+@pytest.mark.parametrize("name", ["many_rows", "adventure", "race_io"])
+def test_sibling_past_a_blocks_shared_memory_is_refused_on_a_card(
+        name, monkeypatch):
+    """At the bench's width-512 cell a program of 151 byte rows plans one
+    instance a block; its 2048-wide sibling would need more shared memory
+    than an H100 block has, so on a card there is none (its instances
+    escape), where the bench's adventure and race-io (7 rows) keep theirs.
+    The engines are built on the CPU, the second then typed as a card's:
+    nothing launches."""
+    card_limits(monkeypatch)
+    cpu = bench_engine(name)
+    assert cpu._wide_tcfg().width == 2048   # the CPU's step has no limit
+    batch = cpu.make_batch(1)
+    assert ts.fits_one_instance(
+        ts.TileShape.of(cpu.tables, [t.shape for t in batch]),
+        ts.H100_SHARED)
+    card = bench_engine(name, "cuda")
+    wide = card._wide_tcfg()
+    if name == "many_rows":
+        assert card.cols.n_rows == 151 and wide is None
+        assert ts.tile_plan(cpu.tables, batch).tile == 1
+    else:
+        assert card.cols.n_rows == 7
+        assert (wide.width, wide.out_width, wide.elem_width) == \
+            (2048, 2048, 512)
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_PROGRAMS))
+def test_the_fit_check_sees_the_tile_plans_shape(name):
+    """``step_fits`` takes its batch shapes from ``batch_shapes``, the tile
+    plan from the batch ``make_batch`` builds: the two TileShapes agree."""
+    eng = bench_engine(name)
+    for n in (1, 3):
+        assert ts.TileShape.of(
+            eng.tables, pt.batch_shapes(eng.cols, eng.tcfg, 1)) == \
+            ts.TileShape.of(eng.tables, [t.shape for t in eng.make_batch(n)])
+
+
+def test_the_sibling_is_decided_and_built_once(monkeypatch):
+    """Two runs of one engine (whose instances keep their IO managers,
+    so each holds both runs' answers), each promoting: the sibling's host
+    tables are built once, for the fit check, and uploaded once."""
+    answers = {0: ["s1", "x2", "x3"] * 2, 1: [BIG, "x2", "x3"] * 2}
+    eng = engine(tp.PROMOTE_MID_RUN, lambda i: answers[i % 2])
+    built = []
+    plan_tables = pt._plan_tables
+    monkeypatch.setattr(pt, "_plan_tables",
+                        lambda *a: built.append(a[2]) or plan_tables(*a))
+    tables = []
+    for _ in range(2):
+        results(eng, 4)
+        assert sorted(eng._escape_results) == [1, 3]
+        tables.append(eng._wide_tables)
+    assert [c.width for c in built] == [4 * WIDE["width"]]
+    assert tables[0] is tables[1] is not None
+
+
+def test_base_engine_past_a_blocks_shared_memory_runs_on_the_general_engine(
+        monkeypatch, tmp_path):
+    """20 strings and 20 lists of 24 elements at 2048 as the base config
+    (141 byte rows): on a card the turbo engine refuses it with NotTurbo
+    before it uploads anything, and run_program_on_device sends it to the
+    general engine on that card, as it does a program the planner
+    rejects."""
+    card_limits(monkeypatch)
+    src = tp.many_rows_program(20)
+    wide = pt.TurboConfig(width=2048, elem_width=512, out_width=2048,
+                          list_cap=24)
+    with pytest.raises(pt.NotTurbo, match="shared memory"):
+        pt.TurboEngine(compile_port(src), wide, device="cuda")
+
+    class Routed(Exception):
+        pass
+
+    def general_engine(compiled, io_factory, device):
+        raise Routed(str(device))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(driver, "DeviceRunner", general_engine)
+    path = tmp_path / "prog.json5"
+    path.write_text(src)
+    iom = port.io_manager
+    with pytest.raises(Routed, match="^cuda$"):
+        driver.run_program_on_device(
+            str(path), [], iom.IOManager(iom.BufferBackend()), batch=4,
+            tcfg=wide, device="cuda")

@@ -1308,3 +1308,25 @@ CHAT_PARALLEL = """
     completion_args: {model: 'fake', api_url: '%(url)s'},
 }
 """
+
+
+def many_rows_program(n: int = 30) -> str:
+    """n string inserts and n lists, each set or appended once, then an
+    answer that can outgrow its slot: at the bench's width-512 cell
+    (elem_width 128, list_cap 12) 151 byte rows, so one instance of the
+    width-2048 promotion sibling needs more shared memory than an H100
+    block has."""
+    sets = "".join(f"{{cmd:'set', item:'v{k}', output_name:'s{k}'}},\n"
+                   f"{{cmd:'list_append', list:'{{l{k}}}', item:'e{k}', "
+                   f"output_name:'l{k}'}},\n" for k in range(n))
+    lists = ", ".join(f"l{k}: []" for k in range(n))
+    return f"""
+{{
+    default_state: {{order_index: 1, inserts: {{{lists}}}}},
+    order: [
+{sets}        {{cmd:'user_input', prompt:'say? ', output_name:'said'}},
+        {{cmd:'print', text:'{{s0}} {{s{n - 1}}} {{l{n - 1}}} [{{said}}]'}},
+    ],
+    named_tasks: {{}}, save_states: {{}},
+}}
+"""
