@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``interpolation_engine_tpu_torch``) on one CUDA
 card and check it.
 
-    python3 chip_smoke.py [--seed N]   # phases 1-19 and the result lines
+    python3 chip_smoke.py [--seed N]   # phases 1-20 and the result lines
     python3 chip_smoke.py --turn TREE  # phase 13 and the chat filter's
                                        # times with TREE's package
 
@@ -155,7 +155,18 @@ and prints no result):
    ``parallel_wait`` block) at 256 instances through the turbo engine
    against one local fake chat server, one character an SSE event, with
    ``IE_TPU_DEVICE_FILTERS=1`` and without: every instance equal to the
-   host, one filter launch a chat call.
+   host, one filter launch a chat call;
+20. the port's bench (``interpolation_engine_tpu_torch/bench.py``) at
+   131,072 instances, in process: spine, divergent (8 states), interp, ring
+   (one in ten parking), race-io (two shard engines), the adventure at
+   width 512 (its tile printed) and the general engine; then the default
+   run (the adventure) as
+   ``python -m interpolation_engine_tpu_torch.bench``, its executed steps
+   equal to the plain step version's over the same launches from the same
+   batch; each JSON line with its four keys, a positive value and a metric
+   naming the card, the engine and the workload, printed as ``bench:
+   {...}``; the in-process runs' launches of the step kernel and the brace
+   scan join their counts below.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -405,7 +416,7 @@ def mesh_step_bound(tables, batch, row_steps, mesh, offsets,
 def phase1(progs: dict, n: int = 8192, launches: int = 4) -> int:
     """Kernel == plain version after every launch; returns the largest
     deviation seen (0 when bit-identical)."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     import torch_programs as tp
     from interpolation_engine_tpu_torch.ops.turbo_step import (
@@ -470,7 +481,7 @@ def timed(fn, batch, launches: int, queued: bool = False) -> float:
 
 
 def phase2(card: str, tmp: str, n: int = 131_072) -> None:
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager
     from interpolation_engine_tpu_torch.ops.turbo_step import (
@@ -534,7 +545,7 @@ def phase3(card: str, tmp: str, n: int = 131_072,
            n_exact: int = 16_384) -> None:
     """The ring program through the fast park path at the bench's size,
     then through the exact ring."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch.vm.turbo import (
         C_STEPS, TurboConfig, TurboEngine)
     src = bench.RING_PROGRAM.replace("sel: 'spin'", "sel: 'park'") \
@@ -578,7 +589,7 @@ def phase3(card: str, tmp: str, n: int = 131_072,
 
 
 def phase4(tmp: str) -> None:
-    import bench
+    from interpolation_engine_tpu_torch import bench
     for name, src in (("spine", bench.BENCH_PROGRAM),
                       ("adventure", bench.adventure_program(t_max=40))):
         path = os.path.join(tmp, f"{name}.json5")
@@ -622,7 +633,7 @@ def check_all_done(name: str, eng, final, host: dict) -> None:
 
 def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     """The main path: the adventure program at the bench's widths."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager
     from interpolation_engine_tpu_torch.ops.turbo_step import (
@@ -712,7 +723,7 @@ def phase6(card: str, tmp: str, n: int = 131_072,
            n_exact: int = 16_384) -> dict:
     """race-io: one lane park per instance per turn, through the fast park
     path at the bench's size, then through the LaneRing."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch.vm.turbo import (
         C_STEPS, DONE, TurboConfig, TurboEngine)
     src = bench.race_io_program(t_max=3)
@@ -901,11 +912,6 @@ def phase7(card: str) -> dict:
     return line
 
 
-GENERAL_CFG = dict(max_str=96, max_key=24, n_slots=12, arena_size=1024,
-                   pool_size=32, out_size=192, max_subst=6, max_stars=2,
-                   max_list=16, max_fix=4)   # bench.py _measure_general
-
-
 class CheckedScan:
     """Stands in for the brace scan inside the interpolation kernel: calls
     the kernel and, while ``check`` is set, the plain version on the same
@@ -945,7 +951,7 @@ class CheckedScan:
 
 def phase8(card: str, n: int = 131_072) -> dict:
     """The general engine at the bench's width, brace scan checked."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import vm_config
     from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
@@ -953,7 +959,8 @@ def phase8(card: str, n: int = 131_072) -> dict:
     from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
 
     runner = DeviceRunner(compile_src(bench.adventure_program()),
-                          vm_config.VMConfig(**GENERAL_CFG), device="cuda")
+                          vm_config.VMConfig(**bench.GENERAL_CFG),
+                          device="cuda")
     checked = CheckedScan(scan_mod.brace_scan, scan_mod.brace_scan_reference)
     ik.scan_mod = type("ScanHook", (), {"brace_scan": checked})
     inner = 8
@@ -1014,14 +1021,15 @@ def phase8(card: str, n: int = 131_072) -> dict:
 
 def phase9(card: str, tmp: str, n: int = 4096) -> None:
     """The general engine to DONE through the ring."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager, vm_config
     from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
     src = bench.adventure_program(t_max=40)
     host = run_host(src, io_manager.IOManager(io_manager.BufferBackend()),
                     tmp)
-    runner = DeviceRunner(compile_src(src), vm_config.VMConfig(**GENERAL_CFG),
+    runner = DeviceRunner(compile_src(src),
+                          vm_config.VMConfig(**bench.GENERAL_CFG),
                           device="cuda")
     t0 = time.perf_counter()
     final = runner.run(runner.make_instances(n))
@@ -1140,7 +1148,7 @@ def phase11(card: str, tmp: str, n: int = 131_072,
     """The turbo engine over a mesh: the sharded step held against the
     unsharded step and its plain version, then the sharded main path and
     race-io through the sharded ring."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager
     from interpolation_engine_tpu_torch.ops.turbo_step import (
@@ -1293,7 +1301,7 @@ def phase11(card: str, tmp: str, n: int = 131_072,
 def phase12(card: str, tmp: str, single: dict, n: int = 16_384) -> None:
     """The bench's race-io shape: two sibling engines pipelined on one
     card, through the fast park path and then through the exact ring."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch.vm.turbo import (
         C_STEPS, TurboConfig, assign_shard_ids, make_shard_engines,
         run_pipelined)
@@ -1359,7 +1367,7 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
     ``checked`` kernel launches held against the plain version, then its
     launch timed. Returns the ring's wall time and the sibling's launch
     (s, ms)."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager as iom
     from interpolation_engine_tpu_torch.ops.turbo_step import (
@@ -1532,6 +1540,7 @@ def phase14(card: str, tmp: str, n: int = 131_072) -> None:
     import numpy as np
     import torch
     import torch_programs as tp
+    from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch._shared import isa, vm_config
     from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
     from interpolation_engine_tpu_torch.ops import interp_kernel as ik
@@ -1541,7 +1550,8 @@ def phase14(card: str, tmp: str, n: int = 131_072) -> None:
     for pick in range(3):
         host = host_with_choice(src, tmp, pick)
         want[pick] = (vm_config.DONE, host["output"], dict(host["inserts"]))
-    runner = DeviceRunner(compile_src(src), vm_config.VMConfig(**GENERAL_CFG),
+    runner = DeviceRunner(compile_src(src),
+                          vm_config.VMConfig(**bench.GENERAL_CFG),
                           device="cuda")
     checked = CheckedScan(scan_mod.brace_scan, scan_mod.brace_scan_reference)
     ik.scan_mod = type("ScanHook", (), {"brace_scan": checked})
@@ -1605,7 +1615,7 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
     in ``every`` answers 3,000 bytes at turn 1, wider than the 2,048-byte
     sibling: those instances escape to one general-engine batch. Then the
     same from the mesh engine (four shards of cuda:0, or one per card)."""
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager as iom
     from interpolation_engine_tpu_torch.ops.brace_scan import (
@@ -1752,8 +1762,7 @@ def phase16(card: str, tmp: str, n: int = 131_072,
     through ``load_batch`` to DONE, then a mid-run export and reload."""
     import numpy as np
     import torch
-    import torch_programs as tp
-    import bench
+    from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch.ops.turbo_step import (
         turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
@@ -1781,7 +1790,8 @@ def phase16(card: str, tmp: str, n: int = 131_072,
     # (a) divergent: 8 states at spread order indexes (bench.py:516-527)
     src = bench.adventure_program(t_max=40)
     eng = TurboEngine(compile_src(src), tcfg, device="cuda")
-    states = tp.divergent_states(eng.compiled, eng.plan.slot_of, n)
+    states = bench.divergent_states(eng.compiled, eng.plan.slot_of, n,
+                                     8)
     uniq = {}
     load_state = eng.load_state
 
@@ -1824,7 +1834,7 @@ def phase16(card: str, tmp: str, n: int = 131_072,
     ring = TurboEngine(compile_src(ring_src), TurboConfig(
         width=128, out_width=192, k_steps=64), io_factory=lambda i:
         canned_io(), device="cuda")
-    rstates = tp.ring_states(ring.compiled, n)
+    rstates = bench.ring_states(ring.compiled, n, 0.10)
     final, elapsed = counted_run(ring, ring.load_batch(rstates))
     cls = np.asarray([0 if s["inserts"]["sel"] == "park" else 1
                       for s in rstates])
@@ -1846,8 +1856,8 @@ def phase16(card: str, tmp: str, n: int = 131_072,
     # states with turns spread 24-39 (every instance reaches turn 40 in few
     # turns), so the rows differ in pc, lanes and inserts
     eng = TurboEngine(compile_src(src), tcfg, device="cuda")
-    batch = eng.load_batch(tp.divergent_states(eng.compiled,
-                                               eng.plan.slot_of, n))
+    batch = eng.load_batch(bench.divergent_states(eng.compiled,
+                                                  eng.plan.slot_of, n, 8))
     spread_slot(eng, batch, "turn", 16, torch.Generator().manual_seed(SEED))
     batch.regs[:, eng.cols.sint(eng.plan.slot_of["turn"])] += 24
     step = eng.step_fn(n)
@@ -1914,9 +1924,10 @@ def phase17(card: str, tmp: str, states: list, hosts: dict,
     from interpolation_engine_tpu_torch.vm import state as vs
     from interpolation_engine_tpu_torch.vm.driver import (DeviceProgramRun,
                                                           DeviceRunner)
-    import bench
+    from interpolation_engine_tpu_torch import bench
     src = bench.adventure_program(t_max=40)
-    runner = DeviceRunner(compile_src(src), vm_config.VMConfig(**GENERAL_CFG),
+    runner = DeviceRunner(compile_src(src),
+                          vm_config.VMConfig(**bench.GENERAL_CFG),
                           device="cuda")
     picked = states[::max(len(states) // n, 1)][:n]
     batch = vs.stack_rows([runner.load_state(st) for st in picked], "cuda")
@@ -2030,7 +2041,7 @@ def phase18(card: str, tmp: str, n: int = 131_072,
     device's at the bench's size, then a sharded ring run to DONE."""
     import torch
     import torch_programs as tp
-    import bench
+    from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch._shared import io_manager, vm_config
     from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
     from interpolation_engine_tpu_torch.ops import interp_kernel as ik
@@ -2043,7 +2054,7 @@ def phase18(card: str, tmp: str, n: int = 131_072,
     else:
         mesh, how = make_mesh(devices=["cuda"] * 4), "four shards on cuda:0"
     log(f"phase 18 mesh [{card}]: {len(mesh)} shards, {how}")
-    cfg = vm_config.VMConfig(**GENERAL_CFG)
+    cfg = vm_config.VMConfig(**bench.GENERAL_CFG)
     runner = DeviceRunner(compile_src(bench.adventure_program()), cfg,
                           device=mesh[0])
     devices = []
@@ -2491,13 +2502,129 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
             "plain_ms": t_plain * 1e3, "max_abs_err": worst, **b}
 
 
+# phase 20's runs of the port's bench: PERF.md's cells in order, the
+# default (adventure) as the subprocess a benchmark calls
+BENCH_RUNS = (
+    ("spine", "turbo", {"BENCH_WORKLOAD": "spine"}),
+    ("divergent", "turbo", {"BENCH_WORKLOAD": "divergent",
+                            "BENCH_DIVERGENCE": "8"}),
+    ("interp", "turbo", {"BENCH_WORKLOAD": "interp"}),
+    ("ring", "turbo", {"BENCH_WORKLOAD": "ring", "BENCH_RING_FRAC": "0.10"}),
+    ("race-io", "turbo", {"BENCH_WORKLOAD": "race-io", "BENCH_SHARDS": "2"}),
+    ("adventure", "turbo", {"BENCH_WIDTH": "512", "BENCH_ELEM": "128",
+                            "BENCH_OUT": "512"}),
+    ("adventure", "general", {"BENCH_ENGINE": "general"}),
+)
+
+
+@contextlib.contextmanager
+def bench_env(env: dict):
+    """The environment with every BENCH_ knob unset but ``env``."""
+    old = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in old:
+        del os.environ[k]
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        os.environ.update(old)
+
+
+def check_bench_line(line: dict, workload: str, engine: str,
+                     n: int) -> None:
+    import torch
+    name = torch.cuda.get_device_name(0)
+    want = (f"({n} instances, {name}, torch {engine} engine, {workload} "
+            f"workload[")
+    if sorted(line) != ["metric", "unit", "value", "vs_baseline"] or \
+            want not in line["metric"] or not line["value"] > 0:
+        raise AssertionError(f"phase 20 {workload} ({engine}): {line}")
+
+
+def phase20(card: str, n: int = 131_072) -> dict:
+    """The port's bench: each of PERF.md's cells in process, the kernels
+    counted; the default run as ``python -m
+    interpolation_engine_tpu_torch.bench``, its executed steps held to the
+    plain step version's over the same launches from the same batch."""
+    import torch
+    from interpolation_engine_tpu_torch import bench
+    from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        turbo_step, turbo_step_reference)
+    from interpolation_engine_tpu_torch.vm.turbo import TurboEngine
+
+    torch.cuda.synchronize()
+    kernels = (turbo_step, turbo_step_reference, scan_mod.brace_scan,
+               scan_mod.brace_scan_reference)
+    for fn in kernels:
+        fn.launches = 0
+    for workload, engine, env in BENCH_RUNS:
+        with bench_env(env):
+            t0 = time.perf_counter()
+            run = bench.measure()
+        check_bench_line(run.line, workload, engine, n)
+        log(f"bench: {json.dumps(run.line)} ({card}; {env}, executed "
+            f"{run.executed} in {run.elapsed:.3f} s, warm launch "
+            f"{run.compile_s:.3f} s, the run {time.perf_counter() - t0:.1f} "
+            f"s)")
+    step_launches, plain_steps, scan_launches, plain_scans = (
+        fn.launches for fn in kernels)
+    if step_launches <= 0 or scan_launches <= 0 or plain_steps or \
+            plain_scans:
+        raise AssertionError(
+            f"phase 20: the bench launched the step kernel {step_launches} "
+            f"times (plain {plain_steps}), the brace scan {scan_launches} "
+            f"(plain {plain_scans})")
+    with bench_env({}):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "interpolation_engine_tpu_torch.bench"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 20: the bench failed: {proc.stderr}")
+    for note in proc.stderr.splitlines():
+        if note.startswith("# "):
+            log(f"bench (the default run) {note}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check_bench_line(line, "adventure", "turbo", n)
+    executed = int(proc.stderr.split("# executed=")[1].split()[0])
+    log(f"bench: {json.dumps(line)} ({card}; the default, "
+        f"python -m interpolation_engine_tpu_torch.bench, executed "
+        f"{executed}, {time.perf_counter() - t0:.1f} s in all)")
+    # the plain step version from the same batch over the same launches:
+    # the warm launch, then the default BENCH_ROUNDS of 8 timed ones
+    src = bench.adventure_program()
+    eng = TurboEngine(compile_src(src), bench._turbo_cfg("adventure"),
+                      device="cuda")
+    batch = eng.make_batch(n)
+    turbo_step_reference(eng.tables, batch, eng.tcfg.k_steps)
+    before = bench._steps(batch)
+    for _ in range(8):
+        turbo_step_reference(eng.tables, batch, eng.tcfg.k_steps)
+    plain = bench._steps(batch) - before
+    if plain != executed:
+        raise AssertionError(f"phase 20: the bench executed {executed} "
+                             f"steps, the plain version {plain}")
+    log(f"phase 20 the default run's {executed} steps equal the plain "
+        f"step version's over the same 8 launches")
+    del eng, batch
+    with bench_env(BENCH_RUNS[5][2]):
+        wide = TurboEngine(compile_src(src), bench._turbo_cfg("adventure"),
+                           device="cuda")
+    log(f"phase 20 adventure at width 512: "
+        f"{tile_line(wide.tables, wide.make_batch(n), wide.tcfg.tile)}")
+    return {"step_launches": step_launches, "scan_launches": scan_launches}
+
+
 def programs() -> dict:
     """Phase 1's programs: the bench's and the port's test programs (the
     program text only)."""
     for path in (ROOT, os.path.join(ROOT, "tests")):
         if path not in sys.path:
             sys.path.insert(0, path)
-    import bench
+    from interpolation_engine_tpu_torch import bench
     import torch_programs as tp
     return {
         "spine": (bench.BENCH_PROGRAM, ("i", 600)),
@@ -2582,12 +2709,16 @@ def main(argv=None) -> int:
         t_chat = time.perf_counter()
         chat = phase19(card, tmp)
         log(f"phase 19 {time.perf_counter() - t_chat:.1f} s")
-    # the launches of phases 16-18's main paths join their kernels' counts
-    main_path["launches"] += resumed["launches"]
+        t_bench = time.perf_counter()
+        benched = phase20(card)
+        log(f"phase 20 {time.perf_counter() - t_bench:.1f} s")
+    # the launches of phases 16-18's and 20's main paths join their
+    # kernels' counts
+    main_path["launches"] += resumed["launches"] + benched["step_launches"]
     main_path["max_abs_err"] = max(worst, main_path["max_abs_err"],
                                    resumed["max_abs_err"])
     general["launches"] += general_resumed["launches"] + \
-        general_mesh["launches"]
+        general_mesh["launches"] + benched["scan_launches"]
     general["max_abs_err"] = max(general["max_abs_err"],
                                  general_resumed["max_abs_err"])
     kernels = [

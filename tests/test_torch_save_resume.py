@@ -32,6 +32,7 @@ from interpolation_engine_tpu.vm.config import (DONE, PARKED, RUNNING,
                                                 T_READY, T_WAIT)
 from interpolation_engine_tpu.vm.state import VMInstance
 from interpolation_engine_tpu_torch import _shared as port
+from interpolation_engine_tpu_torch import bench as port_bench
 from interpolation_engine_tpu_torch.parallel.mesh import unshard
 from interpolation_engine_tpu_torch.vm import driver as pd
 from interpolation_engine_tpu_torch.vm import state as vs
@@ -585,14 +586,15 @@ def test_divergent_and_ring_cells_build_with_load_batch(capsys):
     src = bench.adventure_program(t_max=3)
     eng = port_engine(src, pt.TurboConfig(tile=8, width=64, out_width=192,
                                           k_steps=24))
-    states = tp.divergent_states(eng.compiled, eng.plan.slot_of, 16)
+    states = port_bench.divergent_states(eng.compiled, eng.plan.slot_of,
+                                         16, 8)
     calls = _count_uniques(eng)
     batch = eng.load_batch(states)
     assert len(calls) == 8
     res = eng.results(eng.run(batch, max_rounds=200))
     ring_src = bench.RING_PROGRAM.replace("'1073741824'", "'3'")
     ring = port_engine(ring_src, responses=["ok"] * 8)
-    ring_states = tp.ring_states(ring.compiled, 20)
+    ring_states = port_bench.ring_states(ring.compiled, 20, 0.10)
     rcalls = _count_uniques(ring)
     rres = ring.results(ring.run(ring.load_batch(ring_states),
                                  max_rounds=200))

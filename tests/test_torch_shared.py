@@ -43,7 +43,7 @@ SPINE = """
 BLOCKED_RUN = textwrap.dedent("""
     import importlib.abc, os, sys
 
-    BLOCKED = ("jax", "jaxlib", "interpolation_engine_tpu")
+    BLOCKED = ("jax", "jaxlib", "interpolation_engine_tpu", "bench")
 
     class Blocked(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -59,6 +59,8 @@ BLOCKED_RUN = textwrap.dedent("""
 
     import chip_smoke
     assert len(chip_smoke.programs()) == 20
+    import interpolation_engine_tpu_torch.bench as port_bench
+    assert port_bench._turbo_cfg("race-io").k_steps == 16
     from interpolation_engine_tpu_torch._shared import (
         compile_program, json5, loader, planner, vm_config)
     from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
@@ -81,9 +83,10 @@ BLOCKED_RUN = textwrap.dedent("""
 
 
 def test_port_runs_with_jax_blocked():
-    """With jax and the JAX package both blocked, chip_smoke.py imports and
-    builds its programs, and the port runs a turbo program, the adventure
-    and a program the turbo planner rejects to DONE."""
+    """With jax, the JAX package and the root bench.py blocked, chip_smoke.py
+    and the port's bench import and build their programs, and the port runs
+    a turbo program, the adventure and a program the turbo planner rejects
+    to DONE."""
     import bench
     import torch_programs as tp
     proc = subprocess.run(
@@ -111,10 +114,11 @@ def test_fnv1a_matches_jax_package():
 
 
 def test_port_package_never_imports_jax():
-    """No module of the port, and not chip_smoke.py, imports jax or the JAX
-    package, or writes into sys.modules under the JAX package's names."""
+    """No module of the port, and not chip_smoke.py, imports jax, the JAX
+    package or the root bench.py, or writes into sys.modules under the JAX
+    package's names."""
     pattern = re.compile(
-        r"^\s*(import\s+jax\b|from\s+jax[\s.]"
+        r"^\s*(import\s+jax\b|from\s+jax[\s.]|import\s+bench\b"
         r"|import\s+interpolation_engine_tpu\b(?!_torch)"
         r"|from\s+interpolation_engine_tpu\b(?!_torch))"
         r"|sys\.modules\[\s*[\"']interpolation_engine_tpu\b(?!_torch)",
@@ -126,7 +130,9 @@ def test_port_package_never_imports_jax():
     for path in sources + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
     for bad in ("import jax", "from interpolation_engine_tpu.vm import x",
-                "import interpolation_engine_tpu.cli",
+                "import interpolation_engine_tpu.cli", "    import bench",
                 "sys.modules['interpolation_engine_tpu.vm.state'] = s"):
         assert pattern.search(bad), bad
     assert not pattern.search("from interpolation_engine_tpu_torch import x")
+    assert not pattern.search(
+        "    from interpolation_engine_tpu_torch import bench")

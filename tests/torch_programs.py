@@ -1227,33 +1227,6 @@ def with_state(src: str, state: dict) -> str:
         src[end + 1:]
 
 
-def divergent_states(compiled, slot_of, n: int, classes: int = 8) -> list:
-    """bench.py's divergent cell (``_measure_turbo``, ``divergence=8``):
-    ``n`` states of the program's default inserts plus every key the
-    adventure reads, at ``classes`` top-level order indexes spread over
-    the order."""
-    inserts = dict(compiled.program["default_state"]["inserts"])
-    extra = {"scene": "s", "gen": "g", "hlen": 1}
-    inserts.update({k: v for k, v in extra.items() if k in slot_of})
-    n_top = len(compiled.program["order"])
-    targets = [1 + (k * n_top) // classes for k in range(classes)]
-    return [{"inserts": dict(inserts), "output": "",
-             "order_index": targets[i % classes]} for i in range(n)]
-
-
-def ring_states(compiled, n: int, frac: float = 0.10) -> list:
-    """bench.py's ring cell (``_measure_ring``, ``BENCH_RING_FRAC``): one
-    instance in 1 / frac at ``sel: 'park'``, the rest spinning."""
-    inserts = dict(compiled.program["default_state"]["inserts"])
-    states = []
-    for i in range(n):
-        ins = dict(inserts)
-        if i % max(int(1 / max(frac, 1e-9)), 1) == 0:
-            ins["sel"] = "park"
-        states.append({"inserts": ins, "output": "", "order_index": 1})
-    return states
-
-
 # chat through the ring: each program names the chat server as
 # ``%(url)s`` (``torch_chat.chat_program``); ``torch_chat.reply`` answers
 # each turn with two or three ``<out>`` spans, a ``<think>`` block inside
