@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``interpolation_engine_tpu_torch``) on one CUDA
 card and check it.
 
-    python3 chip_smoke.py [--seed N]   # phases 1-20 and the result lines
+    python3 chip_smoke.py [--seed N]   # phases 1-21 and the result lines
     python3 chip_smoke.py --turn TREE  # phase 13 and the chat filter's
                                        # times with TREE's package
 
@@ -59,10 +59,11 @@ and prints no result):
    lengths and the results);
 8. the general engine at the bench's width (its second path): the
    adventure program, the bench's general VMConfig, 131,072 instances; two
-   launches with every brace-scan call held against the plain version on
-   the same inputs; then the bench's measurement (one warm launch, 8
-   launches x 8 steps, no ring) with tasks/s and the brace scan's share of
-   the wall time;
+   launches with every brace-scan, math-evaluator (M) and wildcard (W) call
+   held against its plain version on the same inputs (``CheckedMW``); then
+   the bench's measurement (one warm launch, 8 launches x 8 steps, no
+   ring) with tasks/s, the brace scan's share of the wall time, and M and
+   W's launches (their plain versions launched none);
 9. the general engine to DONE through the ring: the adventure program at 40
    turns, 4,096 instances (cut from 131,072 because every instance parks
    about 13 times, each a per-row host service); every instance DONE with
@@ -97,10 +98,11 @@ and prints no result):
    ``goto_map`` with template keys, ``math``, the list ops, ``replace_map``,
    ``delete``, ``delete_except``, ``random_choice``): the test program
    ``GENERAL_OPS`` on the bench's general VMConfig at 131,072 instances,
-   every brace-scan call of the first two launches held against the plain
-   version, then ``run`` to DONE with every instance equal to the host
-   (its random_choice given the device's pick, the JAX LCG from rng = row
-   + 1); steps, launches, brace-scan launches, wall time and tasks/s,
+   every brace-scan, M and W call of the first two launches held against
+   its plain version, then ``run`` to DONE with every instance equal to the
+   host (its random_choice given the device's pick, the JAX LCG from rng =
+   row + 1); steps, launches, brace-scan, M and W launches (none of the
+   plain versions), wall time and tasks/s,
    ``ring_stats``, and the torch calls of one step of each handler;
 15. escapes: race-io at phase 13's width-512 shape, 16,384 instances,
    where one instance in 16 answers 3,000 bytes at turn 1, wider than the
@@ -165,8 +167,18 @@ and prints no result):
    equal to the plain step version's over the same launches from the same
    batch; each JSON line with its four keys, a positive value and a metric
    naming the card, the engine and the workload, printed as ``bench:
-   {...}``; the in-process runs' launches of the step kernel and the brace
-   scan join their counts below.
+   {...}``; the in-process runs' launches of the step kernel, the brace
+   scan, M and W join their counts below (M and W's also from phases 15, 17
+   and 18's general paths);
+21. M and W alone at the bench's general VMConfig (MS 96, max_stars 2),
+   131,072 rows each made from ``--seed``: (a) the math evaluator on flat
+   expressions (ints with near-wrap values, the seven operators, unary
+   signs, spaces, faults) and in its enumeration mode on comma lists with
+   a min or max per row; (b) the wildcard matcher on per-row patterns of
+   0-3 stars and segments up to 33 bytes (some unsupported) against
+   subjects up to 96 bytes, one in four ending in a newline, then on one
+   shared pattern; each kernel equal to its plain version on every field
+   of every row, then timed queued beside the plain version and its bound.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -200,6 +212,10 @@ SCAN_REPLACES = "interpolation_engine_tpu/ops/pallas_scan.py:87"
 SHARDED_REPLACES = "interpolation_engine_tpu/vm/turbo.py:1991"
 FILTER_SRC = "interpolation_engine_tpu_torch/csrc/chat_filter.cu"
 FILTER_REPLACES = "interpolation_engine_tpu/ops/filter_kernel.py:155"
+MATH_SRC = "interpolation_engine_tpu_torch/csrc/math_eval.cu"
+MATH_REPLACES = "interpolation_engine_tpu/ops/math_kernel.py:92"
+MATCH_SRC = "interpolation_engine_tpu_torch/csrc/wildcard_match.cu"
+MATCH_REPLACES = "interpolation_engine_tpu/ops/match_kernel.py:188"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 OPS_PER_S = 67e12             # float32 outside the tensor cores, the same
@@ -949,6 +965,94 @@ class CheckedScan:
         return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
 
+# M and W's launches on the general engine's main paths (phases 8, 14, 15,
+# 17, 18 and 20), joined into their rows of the kernels line
+MW_LAUNCHES = {"math": 0, "match": 0}
+
+
+def mw_kernels() -> dict:
+    """name -> (the kernel's launching function, its plain versions)."""
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    from interpolation_engine_tpu_torch.ops import math_kernel as mak
+    return {"math": (mak.math_eval_kernel, (mak.eval_flat_reference,
+                                            mak.eval_enum_minmax_reference)),
+            "match": (mk.wildcard_match_kernel,
+                      (mk.wildcard_match_reference,))}
+
+
+def mw_reset() -> None:
+    for kernel, plains in mw_kernels().values():
+        for fn in (kernel, *plains):
+            fn.launches = 0
+
+
+def mw_collect(phase: str) -> dict:
+    """M and W's launches since ``mw_reset``, joined to ``MW_LAUNCHES``;
+    raises if a plain version launched on the main path."""
+    got = {}
+    for name, (kernel, plains) in mw_kernels().items():
+        plain = sum(fn.launches for fn in plains)
+        if plain:
+            raise AssertionError(f"{phase}: the plain {name} version "
+                                 f"launched {plain} times on the main path")
+        got[name] = kernel.launches
+        MW_LAUNCHES[name] += kernel.launches
+    return got
+
+
+class CheckedMW:
+    """While entered, stands in for the math evaluator's and the wildcard
+    matcher's entry points on the main path (``eval_flat``,
+    ``_eval_enum_minmax``, ``wildcard_match``, which launch M and W on the
+    card): every call goes to the entry point and to the plain version on
+    the same inputs, compared field by field at once."""
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self.compared = {"math": 0, "match": 0}
+        self.worst = 0
+
+    def held(self, name: str, got, want) -> None:
+        diff = max_abs_diff(got, want)
+        self.worst = max(self.worst, diff)
+        self.compared[name] += 1
+        if diff:
+            raise AssertionError(f"{self.phase}: the {name} kernel and its "
+                                 f"plain version differ on the main path")
+
+    def __enter__(self):
+        from interpolation_engine_tpu_torch.ops import match_kernel as mk
+        from interpolation_engine_tpu_torch.ops import math_kernel as mak
+        self.saved = (mak.eval_flat, mak._eval_enum_minmax, mk.wildcard_match)
+        flat, enum, match = self.saved
+
+        def checked_flat(buf, length):
+            out = flat(buf, length)
+            self.held("math", out, mak.eval_flat_reference(buf, length))
+            return out
+
+        def checked_enum(buf, length, want_max):
+            out = enum(buf, length, want_max)
+            self.held("math", out, mak.eval_enum_minmax_reference(
+                buf, length, want_max))
+            return out
+
+        def checked_match(pat, plen, subj, slen, max_stars):
+            out = match(pat, plen, subj, slen, max_stars)
+            self.held("match", out, mk.wildcard_match_reference(
+                pat, plen, subj, slen, max_stars))
+            return out
+        mak.eval_flat, mak._eval_enum_minmax = checked_flat, checked_enum
+        mk.wildcard_match = checked_match
+        return self
+
+    def __exit__(self, *exc):
+        from interpolation_engine_tpu_torch.ops import match_kernel as mk
+        from interpolation_engine_tpu_torch.ops import math_kernel as mak
+        mak.eval_flat, mak._eval_enum_minmax, mk.wildcard_match = self.saved
+        return False
+
+
 def phase8(card: str, n: int = 131_072) -> dict:
     """The general engine at the bench's width, brace scan checked."""
     from interpolation_engine_tpu_torch import bench
@@ -966,16 +1070,20 @@ def phase8(card: str, n: int = 131_072) -> dict:
     inner = 8
     try:
         checked.check = True
-        b = runner.make_instances(n)
-        for _ in range(2):
-            b = runner.launch(b, inner)
-        torch.cuda.synchronize()
+        with CheckedMW("phase 8") as mw:
+            b = runner.make_instances(n)
+            for _ in range(2):
+                b = runner.launch(b, inner)
+            torch.cuda.synchronize()
         checked.check = False
-        if checked.compared == 0:
-            raise AssertionError("phase 8: no brace-scan call was compared")
+        if checked.compared == 0 or mw.compared["match"] == 0:
+            raise AssertionError(f"phase 8: brace-scan calls compared "
+                                 f"{checked.compared}, M and W "
+                                 f"{mw.compared}")
         log(f"phase 8 general adventure [{card}]: {checked.compared} "
-            f"brace-scan calls in the first 2 launches at {n} instances, "
-            f"each bit-identical to the plain version")
+            f"brace-scan calls, {mw.compared['math']} math-evaluator and "
+            f"{mw.compared['match']} wildcard calls in the first 2 launches "
+            f"at {n} instances, each bit-identical to the plain version")
         del b
 
         # the bench's measurement, counted
@@ -983,6 +1091,7 @@ def phase8(card: str, n: int = 131_072) -> dict:
         torch.cuda.synchronize()
         scan_mod.brace_scan.launches = 0
         scan_mod.brace_scan_reference.launches = 0
+        mw_reset()
         t0 = time.perf_counter()
         warm = runner.launch(batch, inner)
         torch.cuda.synchronize()
@@ -1003,6 +1112,9 @@ def phase8(card: str, n: int = 131_072) -> dict:
                 f"phase 8: main path launched the brace-scan kernel "
                 f"{launches} times and the plain version "
                 f"{scan_mod.brace_scan_reference.launches} times")
+        mw_launches = mw_collect("phase 8")
+        if mw_launches["match"] <= 0:
+            raise AssertionError(f"phase 8: M and W launches {mw_launches}")
     finally:
         ik.scan_mod = scan_mod
     steps = int(state.steps.long().sum()) - before
@@ -1014,9 +1126,11 @@ def phase8(card: str, n: int = 131_072) -> dict:
         f"launch {warm_s:.3f} s, 8 launches x {inner} steps: {steps} steps "
         f"in {elapsed:.3f} s = {steps / elapsed:.1f} tasks/s; {launches} "
         f"brace-scan launches, {scan_s:.4f} s in the brace scan = "
-        f"{scan_s / elapsed:.4f} of wall time; running "
+        f"{scan_s / elapsed:.4f} of wall time; M and W launches "
+        f"{json.dumps(mw_launches)}; running "
         f"{int((status == 0).sum())}, parked {int((status == 2).sum())}")
-    return {"launches": launches, "max_abs_err": checked.worst}
+    return {"launches": launches, "max_abs_err": checked.worst,
+            "mw_max_abs_err": mw.worst}
 
 
 def phase9(card: str, tmp: str, n: int = 4096) -> None:
@@ -1558,15 +1672,17 @@ def phase14(card: str, tmp: str, n: int = 131_072) -> None:
     inner = 8
     try:
         checked.check = True
-        b = runner.make_instances(n)
-        for _ in range(2):
-            b = runner.launch(b, inner)
-        torch.cuda.synchronize()
+        with CheckedMW("phase 14") as mw:
+            b = runner.make_instances(n)
+            for _ in range(2):
+                b = runner.launch(b, inner)
+            torch.cuda.synchronize()
         checked.check = False
     finally:
         ik.scan_mod = scan_mod
-    if checked.compared == 0:
-        raise AssertionError("phase 14: no brace-scan call was compared")
+    if checked.compared == 0 or min(mw.compared.values()) == 0:
+        raise AssertionError(f"phase 14: brace-scan calls compared "
+                             f"{checked.compared}, M and W {mw.compared}")
     del b
     torch_calls = count_torch_calls(runner, runner.make_instances(4096),
                                     isa.OP_NAMES)
@@ -1582,10 +1698,14 @@ def phase14(card: str, tmp: str, n: int = 131_072) -> None:
     torch.cuda.synchronize()
     scan_mod.brace_scan.launches = 0
     scan_mod.brace_scan_reference.launches = 0
+    mw_reset()
     t0 = time.perf_counter()
     final = runner.run(batch, inner_steps=inner)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    mw_launches = mw_collect("phase 14")
+    if min(mw_launches.values()) <= 0:
+        raise AssertionError(f"phase 14: M and W launches {mw_launches}")
     scans = scan_mod.brace_scan.launches
     if scans <= 0 or scan_mod.brace_scan_reference.launches != 0:
         raise AssertionError(
@@ -1598,15 +1718,18 @@ def phase14(card: str, tmp: str, n: int = 131_072) -> None:
                                     for k in range(3)}, want)
     steps = int(host["steps"].astype(np.int64).sum())
     log(f"phase 14 general engine, the 11 opcodes (GENERAL_OPS) "
-        f"[{card}]: {checked.compared} brace-scan calls in the first 2 "
-        f"launches at {n} instances, each bit-identical to the plain "
-        f"version; then {n} instances to DONE, each equal to the host "
-        f"(random_choice by the JAX LCG from rng = row + 1): {steps} steps "
-        f"in {len(launches)} launches x {inner} steps, {elapsed:.3f} s = "
-        f"{steps / elapsed:.1f} tasks/s; {scans} brace-scan launches; "
+        f"[{card}]: {checked.compared} brace-scan calls, "
+        f"{mw.compared['math']} math-evaluator and {mw.compared['match']} "
+        f"wildcard calls in the first 2 launches at {n} instances, each "
+        f"bit-identical to the plain version; then {n} instances to DONE, "
+        f"each equal to the host (random_choice by the JAX LCG from rng = "
+        f"row + 1): {steps} steps in {len(launches)} launches x {inner} "
+        f"steps, {elapsed:.3f} s = {steps / elapsed:.1f} tasks/s; {scans} "
+        f"brace-scan launches, M and W {json.dumps(mw_launches)}; "
         f"ring_stats {json.dumps(runner.ring_stats)}")
     log(f"phase 14 torch calls per step by handler (4,096 instances): "
         f"{json.dumps(torch_calls)}")
+    return {"mw_max_abs_err": mw.worst}
 
 
 def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
@@ -1637,6 +1760,7 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
     n_cards = torch.cuda.device_count()
     mesh = ([f"cuda:{d}" for d in range(n_cards)] if n_cards > 1
             else ["cuda:0"] * 4)
+    mw_reset()
     for label, size, kw in (("one card", n, {"device": "cuda"}),
                             (f"mesh of {len(mesh)} shards", n_mesh,
                              {"mesh": mesh})):
@@ -1718,6 +1842,9 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
         f"{len(escaped)} escaped to one general-engine batch on "
         f"{eng.escape_runners[0].device}, every instance DONE equal to the "
         f"host, {turbo_step.launches} step-kernel launches, {elapsed:.3f} s")
+    mw_launches = mw_collect("phase 15")
+    log(f"phase 15 M and W launches on the escape runners: "
+        f"{json.dumps(mw_launches)}")
 
 
 def run_host_from(src: str, state: dict, io, tmp: str) -> dict:
@@ -1933,6 +2060,7 @@ def phase17(card: str, tmp: str, states: list, hosts: dict,
     batch = vs.stack_rows([runner.load_state(st) for st in picked], "cuda")
     checked = CheckedScan(scan_mod.brace_scan, scan_mod.brace_scan_reference)
     scan_mod.brace_scan.launches = scan_mod.brace_scan_reference.launches = 0
+    mw_reset()
     ik.scan_mod = type("ScanHook", (), {"brace_scan": checked})
     try:
         checked.check = True
@@ -2031,7 +2159,7 @@ def phase17(card: str, tmp: str, states: list, hosts: dict,
         f"(slot 1, {json.dumps(saves['1'])}) and Quit printed "
         f"{'hi;[u0!]'!r}; a fresh run's Load State of slot 1 then printed "
         f"{printed.strip()!r}, as the host; {launches} brace-scan launches "
-        f"in phase 17")
+        f"in phase 17, M and W {json.dumps(mw_collect('phase 17'))}")
     return {"launches": launches, "max_abs_err": checked.worst}
 
 
@@ -2066,6 +2194,7 @@ def phase18(card: str, tmp: str, n: int = 131_072,
             return scan_mod.brace_scan(bufs, lengths)
 
     scan_mod.brace_scan.launches = scan_mod.brace_scan_reference.launches = 0
+    mw_reset()
     one = runner.make_instances(n)
     many = shard_batch(one, mesh)
     inner, times = 8, {"one": [], "sharded": []}
@@ -2137,7 +2266,8 @@ def phase18(card: str, tmp: str, n: int = 131_072,
     log(f"phase 18 sharded ring [{card}]: parallel_wait at {n_ring} "
         f"instances, each answering its own inputs, to DONE over the mesh "
         f"in {ring_s:.3f} s, field for field the unsharded run, outputs "
-        f"the host's; ring_stats {json.dumps(ring.ring_stats)}")
+        f"the host's; ring_stats {json.dumps(ring.ring_stats)}; M and W "
+        f"launches {json.dumps(mw_collect('phase 18'))}")
     return {"launches": launches, "ms_one": times["one"],
             "ms_sharded": times["sharded"]}
 
@@ -2560,6 +2690,7 @@ def phase20(card: str, n: int = 131_072) -> dict:
                scan_mod.brace_scan_reference)
     for fn in kernels:
         fn.launches = 0
+    mw_reset()
     for workload, engine, env in BENCH_RUNS:
         with bench_env(env):
             t0 = time.perf_counter()
@@ -2571,6 +2702,8 @@ def phase20(card: str, n: int = 131_072) -> dict:
             f"s)")
     step_launches, plain_steps, scan_launches, plain_scans = (
         fn.launches for fn in kernels)
+    log(f"phase 20 M and W launches in the bench runs: "
+        f"{json.dumps(mw_collect('phase 20'))}")
     if step_launches <= 0 or scan_launches <= 0 or plain_steps or \
             plain_scans:
         raise AssertionError(
@@ -2616,6 +2749,178 @@ def phase20(card: str, n: int = 131_072) -> dict:
     log(f"phase 20 adventure at width 512: "
         f"{tile_line(wide.tables, wide.make_batch(n), wide.tcfg.tile)}")
     return {"step_launches": step_launches, "scan_launches": scan_launches}
+
+
+MATH_NUMBERS = ("0", "1", "2", "3", "7", "9", "10", "31", "32", "99",
+                "65536", "46341", "2147483647", "2147483648", "4294967295",
+                "99999999999")
+MATH_OPS = ("+", "-", "*", "/", "%", "**", "//")
+
+
+def math_expr(rng) -> str:
+    """A paren-free expression of the test generator's shapes: numbers
+    (near-wrap ones too), the seven operators, unary signs, spaces, and now
+    and then a fault (a trailing operator, a dot, a stray byte)."""
+    parts = []
+    for k in range(rng.randint(1, 6)):
+        if k:
+            parts.append(rng.choice(("", " ")) + rng.choice(MATH_OPS)
+                         + rng.choice(("", " ")))
+        parts.append(rng.choice(("", "", "", "-", "- ", "--", "+"))
+                     + rng.choice(MATH_NUMBERS))
+    e = "".join(parts)
+    k = rng.random()
+    if k < 0.05:
+        e += rng.choice((" +", "*", "**"))
+    elif k < 0.1:
+        cut = rng.randint(0, len(e))
+        e = e[:cut] + rng.choice((".", "x", ",")) + e[cut:]
+    elif k < 0.12:
+        e = rng.choice(("", " ", "*1"))
+    return e
+
+
+def wild_pattern(rng, stars: int = None) -> str:
+    """0-3 stars between literal segments of up to 33 bytes; or ``stars``
+    stars between short ones (a supported pattern)."""
+    count = rng.randint(0, 3) if stars is None else stars
+    segs = [rng.choice(("", "a", "b", "ab", "ba", "aab", "\n"))
+            if stars is not None or rng.random() < 0.85 else
+            "".join(rng.choice("ab") for _ in range(rng.randint(20, 33)))
+            for _ in range(count + 1)]
+    return "*".join(segs)
+
+
+def wild_subject(rng, pattern: str, ms: int) -> str:
+    """Half the subjects are the pattern's literals with filler where its
+    stars are (they mostly match), half random; one in four ends in a
+    newline."""
+    if rng.random() < 0.5:
+        s = "".join(lit + "".join(rng.choice("ab\n") for _ in range(
+            rng.randint(0, 6))) for lit in pattern.split("*"))
+    else:
+        s = "".join(rng.choice("aab\n") for _ in range(rng.randint(0, ms)))
+    if rng.random() < 0.25:
+        s = s[:ms - 1] + "\n"
+    return s[:ms]
+
+
+def byte_rows(texts, ms: int, gen):
+    """(N, ms) uint8 rows on the card with (N,) int32 lengths; past its
+    length a row holds junk digits and operators from ``gen``."""
+    import numpy as np
+    import torch
+    data = [t.encode()[:ms] for t in texts]
+    bufs = np.frombuffer(b"".join(d.ljust(ms, b"\0") for d in data),
+                         np.uint8).reshape(len(texts), ms)
+    lens = np.fromiter((len(d) for d in data), np.int32, len(texts))
+    junk = np.frombuffer(b"0123456789+-*/%,ab\n", np.uint8)[
+        gen.integers(0, 19, bufs.shape)]
+    bufs = np.where(np.arange(ms)[None, :] < lens[:, None], bufs, junk)
+    return (torch.from_numpy(np.ascontiguousarray(bufs)).cuda(),
+            torch.from_numpy(lens).cuda())
+
+
+def held_fields(what: str, got, want) -> None:
+    import torch
+    for name, g, w in zip(got._fields, got, want):
+        if not torch.equal(g, w):
+            bad = int((g != w).reshape(g.shape[0], -1).any(dim=1).sum())
+            raise AssertionError(f"phase 21 {what}: field {name} differs "
+                                 f"from the plain version on {bad} rows")
+
+
+def mw_times(kernel, plain, calls: int = 20) -> tuple:
+    """ms a call after the check's calls: the kernel queued (``timed``),
+    the plain version once, unqueued (it syncs the host itself)."""
+    k = timed(lambda _: kernel(), None, calls, True) / calls * 1e3
+    return k, timed(lambda _: plain(), None, 1) * 1e3
+
+
+def phase21(card: str, n: int = 131_072) -> dict:
+    """M and W alone at the bench's general VMConfig (MS 96, max_stars 2):
+    each kernel equal to its plain version on every field of every row of
+    rows made from ``--seed``, then both timed beside their bounds."""
+    import random
+    import numpy as np
+    import torch
+    from interpolation_engine_tpu_torch import bench
+    from interpolation_engine_tpu_torch.ops import interp_kernel as ik
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    from interpolation_engine_tpu_torch.ops import math_kernel as mak
+    ms, stars = bench.GENERAL_CFG["max_str"], bench.GENERAL_CFG["max_stars"]
+    rng, gen = random.Random(SEED), np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+
+    # (a) M: flat expressions, and comma lists for the enumeration mode
+    fb, fl = byte_rows([math_expr(rng) for _ in range(n)], ms, gen)
+    eb, el = byte_rows([",".join(math_expr(rng) for _ in range(
+        rng.randint(1, 4))) + rng.choice(("", "", ",")) for _ in range(n)],
+        ms, gen)
+    want_max = torch.from_numpy(gen.integers(0, 2, n).astype(bool)).cuda()
+    flat = mak.math_eval_kernel(fb, fl)
+    held_fields("M flat", flat, mak.eval_flat_reference(fb, fl))
+    enum = mak.math_eval_kernel(eb, el, want_max)
+    held_fields("M enumeration", enum,
+                mak.eval_enum_minmax_reference(eb, el, want_max))
+    torch.cuda.synchronize()
+    for label, res in (("flat", flat), ("enumeration", enum)):
+        errs = set(res.err.unique().tolist())
+        if not {ik.ERR_OK, ik.ERR_ASSERT, ik.ERR_HOST} <= errs:
+            raise AssertionError(f"phase 21 M {label}: outcomes {errs}")
+    m_flat = mw_times(lambda: mak.math_eval_kernel(fb, fl),
+                      lambda: mak.eval_flat_reference(fb, fl))
+    m_enum = mw_times(lambda: mak.math_eval_kernel(eb, el, want_max),
+                      lambda: mak.eval_enum_minmax_reference(eb, el,
+                                                             want_max))
+    m_bound = bound(nbytes((fb, fl, flat.err, flat.value)),
+                    int(fl.clamp(0, ms).sum()))
+    e_bound = bound(nbytes((eb, el, want_max, enum.err, enum.value)),
+                    int(el.clamp(0, ms).sum()))
+    log(f"phase 21 M [{card}]: {n} flat rows and {n} comma lists at MS "
+        f"{ms}, every err and value equal to the plain version "
+        f"({int((flat.err == 0).sum())} and {int((enum.err == 0).sum())} "
+        f"rows OK); flat: kernel {m_flat[0]:.5f} ms/call queued, plain "
+        f"{m_flat[1]:.3f} ms/call, bound {m_bound['bound_ms']:.5f} ms "
+        f"({m_bound['bound_by']}); enumeration: kernel {m_enum[0]:.5f}, "
+        f"plain {m_enum[1]:.3f}, bound {e_bound['bound_ms']:.5f}")
+    del fb, fl, eb, el, want_max, flat, enum
+
+    # (b) W: per-row patterns, then one shared pattern
+    pats = [wild_pattern(rng) for _ in range(n)]
+    pb, pl = byte_rows(pats, ms, gen)
+    sb, sl = byte_rows([wild_subject(rng, p, ms) for p in pats], ms, gen)
+    shared = wild_pattern(rng, stars)
+    qb, ql = byte_rows([shared], ms, gen)
+    tb, tl = byte_rows([wild_subject(rng, shared, ms) for _ in range(n)], ms,
+                       gen)
+    w = {}
+    for label, args in (("per-row patterns", (pb, pl, sb, sl)),
+                        ("one shared pattern", (qb, ql, tb, tl))):
+        got = mk.wildcard_match_kernel(*args, stars)
+        held_fields(f"W {label}", got, mk.wildcard_match_reference(*args,
+                                                                    stars))
+        subj, slen = args[2:]
+        ok, sup = int(got.ok.sum()), int(got.supported.sum())
+        nl = int((got.ok & (subj.gather(1, (slen - 1).clamp(0, ms - 1)
+                                        .long()[:, None])[:, 0] == 10)).sum())
+        if not (0 < ok < n) or not (0 < sup < n if args[0].shape[0] == n
+                                    else sup == n):
+            raise AssertionError(f"phase 21 W {label}: {ok} matched, {sup} "
+                                 f"supported of {n}")
+        k, p = mw_times(lambda: mk.wildcard_match_kernel(*args, stars),
+                        lambda: mk.wildcard_match_reference(*args, stars))
+        b = bound(nbytes((*args, *got)), int(slen.clamp(0, ms).sum()))
+        w[label] = {"ms": k, "plain_ms": p, **b}
+        log(f"phase 21 W {label} [{card}]: {n} subjects at MS {ms}, "
+            f"max_stars {stars}, every field equal to the plain version "
+            f"({ok} matched, {nl} of them ending in a newline, {sup} "
+            f"supported); kernel {k:.5f} ms/call queued, plain {p:.3f} "
+            f"ms/call, bound {b['bound_ms']:.5f} ms ({b['bound_by']}), the "
+            f"kernel at {b['bound_ms'] / k * 100:.1f} % of it")
+    log(f"phase 21 {time.perf_counter() - t0:.1f} s")
+    return {"math": {"ms": m_flat[0], "plain_ms": m_flat[1], **m_bound},
+            "match": w["one shared pattern"]}
 
 
 def programs() -> dict:
@@ -2698,7 +3003,7 @@ def main(argv=None) -> int:
         sharded = phase11(card, tmp)
         phase12(card, tmp, race_io)
         phase13(card, tmp)
-        phase14(card, tmp)
+        general_ops = phase14(card, tmp)
         phase15(card, tmp)
         t_resume = time.perf_counter()
         resumed = phase16(card, tmp)
@@ -2712,6 +3017,7 @@ def main(argv=None) -> int:
         t_bench = time.perf_counter()
         benched = phase20(card)
         log(f"phase 20 {time.perf_counter() - t_bench:.1f} s")
+        alone = phase21(card)
     # the launches of phases 16-18's and 20's main paths join their
     # kernels' counts
     main_path["launches"] += resumed["launches"] + benched["step_launches"]
@@ -2730,10 +3036,21 @@ def main(argv=None) -> int:
              replaces=SHARDED_REPLACES, **sharded),
         dict(name="chat_filter_kernel", source=FILTER_SRC,
              replaces=FILTER_REPLACES, **chat)]
+    # M and W: their launches on phases 8, 14, 15, 17, 18 and 20's general
+    # paths, every call of phases 8 and 14's first two launches held to the
+    # plain version, the times phase 21's
+    worst = max(general["mw_max_abs_err"], general_ops["mw_max_abs_err"])
+    kernels += [
+        dict(name="math_eval_kernel", source=MATH_SRC,
+             replaces=MATH_REPLACES, launches=MW_LAUNCHES["math"],
+             max_abs_err=worst, **alone["math"]),
+        dict(name="wildcard_match_kernel", source=MATCH_SRC,
+             replaces=MATCH_REPLACES, launches=MW_LAUNCHES["match"],
+             max_abs_err=worst, **alone["match"])]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # no single PyTorch call computes a VM step, the four scan values or
-    # the chat filter
+    # no single PyTorch call computes a VM step, the four scan values, the
+    # chat filter, an expression's value or a wildcard match
     kernels = [{k: dict(kern, route="cuda", library_ms=None)[k]
                 for k in keys} for kern in kernels]
     log(f"total {time.perf_counter() - t_start:.1f} s")

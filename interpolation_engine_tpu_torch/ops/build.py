@@ -103,6 +103,13 @@ def load() -> ctypes.CDLL:
     lib.chat_filter_layout.restype = i
     lib.chat_filter_attributes.argtypes = [ints]
     lib.chat_filter_attributes.restype = i
+    lib.math_eval_launch.argtypes = [p] * 3 + [i] * 2 + [p] * 3
+    lib.math_eval_launch.restype = i
+    lib.wildcard_match_launch.argtypes = [p, p, i, i, p, p] + [i] * 3 \
+        + [p] * 6
+    lib.wildcard_match_launch.restype = i
+    lib.wildcard_match_max_stars.argtypes = []
+    lib.wildcard_match_max_stars.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib

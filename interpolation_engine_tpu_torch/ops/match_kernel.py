@@ -12,10 +12,19 @@ supported: the caller defers to the host.
 
 Each row has its own subject; the pattern is either per row or one row
 shared by all.
+
+``wildcard_match`` launches ``csrc/wildcard_match.cu`` on CUDA tensors (one
+thread a row; the right-to-left feasibility pass is one integer a star, the
+rightmost feasible position: ``wildcard_match_kernel``) or raises; on CPU
+tensors, and only there, it runs ``wildcard_match_reference``, the plain
+version described above, which works on any device so that it can be held
+against the kernel on the card. Both count their launches in
+``.launches``, under a lock.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -149,9 +158,76 @@ def _match_at_cut(subj, cut, pat, n_stars, seg_off, seg_len,
     return ok, cap_off, cap_len
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def wildcard_match(pat, plen, subj, slen, max_stars: int) -> MatchResult:
     """Match each subject row against its pattern row (or against one
-    pattern row shared by all)."""
+    pattern row shared by all). The kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if subj.device.type == "cpu":
+        return wildcard_match_reference(pat, plen, subj, slen, max_stars)
+    return wildcard_match_kernel(pat, plen, subj, slen, max_stars)
+
+
+def wildcard_match_kernel(pat, plen, subj, slen,
+                          max_stars: int) -> MatchResult:
+    """Launch ``csrc/wildcard_match.cu`` on CUDA rows; raises if it cannot
+    launch."""
+    for name, t in (("pat", pat), ("subj", subj)):
+        if t.dtype != torch.uint8 or t.dim() != 2:
+            raise ValueError(f"{name}: want uint8 2-d, got {t.dtype} "
+                             f"{t.dim()}-d")
+    dev = subj.device
+    if dev.type != "cuda" or pat.device != dev:
+        raise ValueError(f"wildcard_match_kernel needs CUDA tensors on one "
+                         f"device, got {pat.device} and {dev}")
+    rows, ms = subj.shape
+    n_pat, pms = pat.shape
+    if n_pat not in (1, rows):
+        raise ValueError(f"{n_pat} pattern rows for {rows} subject rows")
+    from .build import load
+    lib = load()
+    if not 0 <= max_stars <= lib.wildcard_match_max_stars():
+        raise ValueError(f"max_stars {max_stars} outside the kernel's "
+                         f"[0, {lib.wildcard_match_max_stars()}]")
+    pat = pat.contiguous()
+    subj = subj.contiguous()
+    plen = bs.col(plen, n_pat, dev).expand(n_pat).contiguous()
+    slen = bs.col(slen, rows, dev).expand(rows).contiguous()
+    ok = torch.empty(rows, dtype=torch.bool, device=dev)
+    supported = torch.empty_like(ok)
+    n_caps = torch.empty(rows, dtype=torch.int32, device=dev)
+    cap_off = torch.empty((rows, max_stars), dtype=torch.int32, device=dev)
+    cap_len = torch.empty_like(cap_off)
+    out = MatchResult(ok, supported, n_caps, cap_off, cap_len)
+    if rows == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = lib.wildcard_match_launch(
+            pat.data_ptr(), plen.data_ptr(), pms, int(n_pat == 1),
+            subj.data_ptr(), slen.data_ptr(), rows, ms, max_stars,
+            ok.data_ptr(), supported.data_ptr(), n_caps.data_ptr(),
+            cap_off.data_ptr(), cap_len.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wildcard_match_kernel launch failed: CUDA "
+                           f"error {rc} "
+                           f"({lib.turbo_error_string(rc).decode()})")
+    with _COUNT_LOCK:
+        wildcard_match_kernel.launches += 1
+    return out
+
+
+wildcard_match_kernel.launches = 0
+
+
+def wildcard_match_reference(pat, plen, subj, slen,
+                             max_stars: int) -> MatchResult:
+    """The plain version of ``wildcard_match``, batched torch on any
+    device."""
+    with _COUNT_LOCK:
+        wildcard_match_reference.launches += 1
     rows = subj.shape[0]
     dev = subj.device
     plen = bs.col(plen, pat.shape[0], dev)
@@ -179,3 +255,6 @@ def wildcard_match(pat, plen, subj, slen, max_stars: int) -> MatchResult:
         n_caps=n_stars.clamp(max=max_stars).to(torch.int32),
         cap_off=torch.where(use_trim[:, None], cot, cof),
         cap_len=torch.where(use_trim[:, None], clt, clf))
+
+
+wildcard_match_reference.launches = 0

@@ -8,13 +8,19 @@ paren first, up to ``MAX_PARENS`` groups, dispatching ``length``, ``min``,
 ``max``, ``round`` and ``sign`` where a function name precedes the group;
 the paren-free rest is evaluated with Python's operator semantics.
 
-A row is ``(MS,)`` uint8 bytes with an int32 length. The flat evaluator is
-one state machine per row over ``(N, STACK)`` operand and operator stacks:
-each pass of its loop moves every live row by one event (a byte scanned, a
-digit consumed, an operator reduced), so rows of different shapes advance
-side by side, each in its own order, as the JAX ``while_loop`` runs them one
-by one. Values are int64 tensors holding int32s, wrapped after every
-operation.
+A row is ``(MS,)`` uint8 bytes with an int32 length. The paren passes are
+batched torch. The paren-free evaluation (``eval_flat``) and the min/max
+over a comma list (``_eval_enum_minmax``) launch ``csrc/math_eval.cu`` on
+CUDA tensors (one thread a row, one walk over its bytes: ``math_eval_kernel``)
+or raise; on CPU tensors, and only there, they run their plain versions,
+``eval_flat_reference`` and ``eval_enum_minmax_reference``, which work on
+any device so that they can be held against the kernel on the card. The
+plain flat evaluator is one state machine per row over ``(N, STACK)``
+operand and operator stacks: each pass of its loop moves every live row by
+one event (a byte scanned, a digit consumed, an operator reduced), so rows
+of different shapes advance side by side, each in its own order, as the JAX
+``while_loop`` runs them one by one. Values are int64 tensors holding
+int32s, wrapped after every operation.
 
 Device restrictions, as in the JAX package (ERR_HOST defers to the host):
 true division only when exact, no '.' literals, no '**' with a negative
@@ -22,10 +28,16 @@ exponent, no min/max over string lists. '%' and '//' floor as Python's do
 (``torch.remainder``, ``rounding_mode="floor"``, never ``fmod``); unary
 minus binds tighter than '*', '/', '%' and looser than '**', which is
 right-associative.
+
+Each launching function counts its launches in ``.launches``, under a lock
+(the general engine over a mesh calls them from a worker thread per
+device): ``math_eval_kernel``, ``eval_flat_reference`` and
+``eval_enum_minmax_reference``.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -121,9 +133,67 @@ def _reduce_once(nums, ns, ops, os):
     return nums, new_ns, os - 1, err
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def math_eval_kernel(buf: torch.Tensor, length,
+                     want_max=None) -> EvalResult:
+    """Launch ``csrc/math_eval.cu`` on CUDA rows: the flat evaluator, or
+    with ``want_max`` (a bool or an (N,) bool tensor) min/max over each
+    row's comma-separated expressions. Raises if it cannot launch."""
+    if buf.dtype != torch.uint8 or buf.dim() != 2:
+        raise ValueError(f"buf: want uint8 2-d, got {buf.dtype} "
+                         f"{buf.dim()}-d")
+    if buf.device.type != "cuda":
+        raise ValueError(f"math_eval_kernel needs a CUDA tensor, got "
+                         f"{buf.device}")
+    rows, ms = buf.shape
+    dev = buf.device
+    buf = buf.contiguous()
+    length = bs.col(length, rows, dev).contiguous()
+    if length.shape != (rows,) or length.device != dev:
+        raise ValueError(f"length: want ({rows},) on {dev}, got "
+                         f"{tuple(length.shape)} on {length.device}")
+    wm = None
+    if want_max is not None:
+        wm = torch.as_tensor(want_max, device=dev).to(torch.uint8).expand(
+            rows).contiguous()
+    err = torch.empty(rows, dtype=torch.int32, device=dev)
+    value = torch.empty(rows, dtype=torch.int32, device=dev)
+    if rows == 0:
+        return EvalResult(err, value)
+    from .build import load
+    lib = load()
+    with torch.cuda.device(dev):
+        rc = lib.math_eval_launch(
+            buf.data_ptr(), length.data_ptr(),
+            None if wm is None else wm.data_ptr(), rows, ms,
+            err.data_ptr(), value.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"math_eval_kernel launch failed: CUDA error "
+                           f"{rc} ({lib.turbo_error_string(rc).decode()})")
+    with _COUNT_LOCK:
+        math_eval_kernel.launches += 1
+    return EvalResult(err, value)
+
+
+math_eval_kernel.launches = 0
+
+
 def eval_flat(buf: torch.Tensor, length) -> EvalResult:
     """Evaluate each row's paren-free integer expression with Python's
-    semantics: (N, n) uint8 bytes, (N,) lengths."""
+    semantics: (N, n) uint8 bytes, (N,) lengths. The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if buf.device.type == "cpu":
+        return eval_flat_reference(buf, length)
+    return math_eval_kernel(buf, length)
+
+
+def eval_flat_reference(buf: torch.Tensor, length) -> EvalResult:
+    """The plain version of ``eval_flat``, batched torch on any device."""
+    with _COUNT_LOCK:
+        eval_flat_reference.launches += 1
     rows, n = buf.shape
     dev = buf.device
     length = bs.col(length, rows, dev).to(torch.int64)
@@ -234,6 +304,9 @@ def eval_flat(buf: torch.Tensor, length) -> EvalResult:
     return EvalResult(err.to(torch.int32), bs.to_i32(nums[:, 0]))
 
 
+eval_flat_reference.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # paren reduction and function dispatch
 # ---------------------------------------------------------------------------
@@ -275,10 +348,23 @@ def _eval_list_minmax(st, key_buf, key_len, want_max, cfg) -> EvalResult:
 
 
 def _eval_enum_minmax(buf, length, want_max) -> EvalResult:
-    """min/max over each row's comma-separated flat expressions."""
+    """min/max over each row's comma-separated flat expressions, in turn
+    up to the first that errs. The kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if buf.device.type == "cpu":
+        return eval_enum_minmax_reference(buf, length, want_max)
+    return math_eval_kernel(buf, length, want_max)
+
+
+def eval_enum_minmax_reference(buf, length, want_max) -> EvalResult:
+    """The plain version of ``_eval_enum_minmax``, batched torch on any
+    device (each segment through ``eval_flat_reference``)."""
+    with _COUNT_LOCK:
+        eval_enum_minmax_reference.launches += 1
     rows, n = buf.shape
     dev = buf.device
-    length = length.to(torch.int64)
+    length = bs.col(length, rows, dev).to(torch.int64)
+    want_max = torch.as_tensor(want_max, device=dev).expand(rows)
     start = torch.zeros(rows, dtype=torch.int64, device=dev)
     best = torch.zeros_like(start)
     err = torch.zeros_like(start)
@@ -291,7 +377,7 @@ def _eval_enum_minmax(buf, length, want_max) -> EvalResult:
         nxt = bs.find(buf, length, COMMA, start).to(torch.int64)
         end = torch.where(nxt == -1, length, nxt)
         seg, seg_len = bs.substring(buf, start, end - start, n)
-        r = eval_flat(seg, seg_len)
+        r = eval_flat_reference(seg, seg_len)
         val = r.value.to(torch.int64)
         cand = torch.where(want_max, torch.maximum(best, val),
                            torch.minimum(best, val))
@@ -302,6 +388,9 @@ def _eval_enum_minmax(buf, length, want_max) -> EvalResult:
         start = torch.where(go, end + 1, start)
     err = torch.where(~any_v, ERR_ASSERT, err)
     return EvalResult(err.to(torch.int32), best.to(torch.int32))
+
+
+eval_enum_minmax_reference.launches = 0
 
 
 def _has_only_enum_chars(buf, length) -> torch.Tensor:

@@ -592,3 +592,112 @@ def test_chat_filter_host_on_the_card_equals_the_cpu(cuda):
         assert filter_chat_host(*stream) == filter_chat_host(*stream,
                                                              device="cpu")
     assert filter_chat_host.oracle_calls == before + 2
+
+
+# ---------------------------------------------------------------------------
+# the math-evaluator (csrc/math_eval.cu) and wildcard (csrc/wildcard_match.cu)
+# kernels
+# ---------------------------------------------------------------------------
+
+def expression_rows(n, ms, seed, lists=False):
+    """n seeded rows of chip_smoke's expression shapes (comma lists with
+    ``lists``), junk past each length."""
+    import numpy as np
+    import chip_smoke as cs
+    rng = random.Random(seed)
+    texts = [",".join(cs.math_expr(rng) for _ in range(rng.randint(1, 4)))
+             if lists else cs.math_expr(rng) for _ in range(n)]
+    return cs.byte_rows(texts, ms, np.random.default_rng(seed))
+
+
+@pytest.mark.parametrize("n,ms", [(1, 96), (129, 96), (5000, 96), (300, 7),
+                                  (2049, 130)])
+@pytest.mark.parametrize("mode", ["flat", "min", "max", "mixed"])
+def test_math_eval_kernel_equals_plain(n, ms, mode, cuda):
+    from interpolation_engine_tpu_torch.ops import math_kernel as mak
+    bufs, lens = expression_rows(n, ms, n + ms, lists=mode != "flat")
+    if ms == 7:     # lengths past the row and below 0
+        lens = torch.randint(-2, ms + 6, (n,), generator=torch.Generator()
+                             .manual_seed(n), dtype=torch.int32).to(cuda)
+    want_max = {"flat": None, "min": False, "max": True,
+                "mixed": torch.arange(n, device=cuda) % 3 == 0}[mode]
+    before = mak.math_eval_kernel.launches
+    got = mak.math_eval_kernel(bufs, lens, want_max)
+    want = (mak.eval_flat_reference(bufs, lens) if want_max is None else
+            mak.eval_enum_minmax_reference(bufs, lens, want_max))
+    torch.cuda.synchronize()
+    assert mak.math_eval_kernel.launches == before + 1
+    assert torch.equal(got.err, want.err)
+    assert torch.equal(got.value, want.value)
+
+
+def test_math_evaluator_dispatches_to_the_kernel_on_the_card(cuda):
+    from interpolation_engine_tpu_torch.ops import math_kernel as mak
+    bufs, lens = expression_rows(64, 96, 1, lists=True)
+    counts = (mak.math_eval_kernel, mak.eval_flat_reference,
+              mak.eval_enum_minmax_reference)
+    before = [fn.launches for fn in counts]
+    mak.eval_flat(bufs, lens)
+    mak._eval_enum_minmax(bufs, lens, True)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counts, before)] == [2, 0, 0]
+
+
+def wildcard_rows(n, ms, seed, shared=False, stars=None):
+    import numpy as np
+    import chip_smoke as cs
+    rng = random.Random(seed)
+    gen = np.random.default_rng(seed)
+    pats = [cs.wild_pattern(rng, stars) for _ in range(1 if shared else n)]
+    subjs = [cs.wild_subject(rng, pats[0 if shared else i], ms)
+             for i in range(n)]
+    return (*cs.byte_rows(pats, ms, gen), *cs.byte_rows(subjs, ms, gen))
+
+
+@pytest.mark.parametrize("n,ms", [(1, 96), (129, 96), (5000, 96), (300, 40),
+                                  (2049, 130)])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("max_stars", [2, 7])
+def test_wildcard_match_kernel_equals_plain(n, ms, shared, max_stars, cuda):
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    args = wildcard_rows(n, ms, n + ms + max_stars, shared,
+                         2 if shared else None)
+    before = mk.wildcard_match_kernel.launches
+    got = mk.wildcard_match_kernel(*args, max_stars)
+    want = mk.wildcard_match_reference(*args, max_stars)
+    torch.cuda.synchronize()
+    assert mk.wildcard_match_kernel.launches == before + 1
+    for name, g, w in zip(mk.MatchResult._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_wildcard_lengths_past_the_row_equal_plain(cuda):
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    pb, _, sb, _ = wildcard_rows(500, 12, 3)
+    gen = torch.Generator().manual_seed(3)
+    pl, sl = (torch.randint(-2, 20, (500,), generator=gen,
+                            dtype=torch.int32).to(cuda) for _ in range(2))
+    got = mk.wildcard_match_kernel(pb, pl, sb, sl, 3)
+    want = mk.wildcard_match_reference(pb, pl, sb, sl, 3)
+    for name, g, w in zip(mk.MatchResult._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_wildcard_match_dispatches_to_the_kernel_on_the_card(cuda):
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    args = wildcard_rows(64, 96, 2)
+    before = (mk.wildcard_match_kernel.launches,
+              mk.wildcard_match_reference.launches)
+    mk.wildcard_match(*args, 2)
+    torch.cuda.synchronize()
+    assert (mk.wildcard_match_kernel.launches - before[0],
+            mk.wildcard_match_reference.launches - before[1]) == (1, 0)
+
+
+def test_wildcard_match_kernel_refuses_what_it_cannot_take(cuda):
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    pb, pl, sb, sl = wildcard_rows(8, 16, 4)
+    with pytest.raises(ValueError):
+        mk.wildcard_match(pb, pl, sb, sl, 65)
+    with pytest.raises(ValueError):
+        mk.wildcard_match(pb[:3], pl[:3], sb, sl, 2)
