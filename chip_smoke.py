@@ -2821,6 +2821,13 @@ def byte_rows(texts, ms: int, gen):
             torch.from_numpy(lens).cuda())
 
 
+def row_bytes(lengths, ms: int) -> int:
+    """The bytes of (N, ms) rows within their lengths, each row's rounded
+    up to 32-byte sectors (the least the card reads from memory)."""
+    lens = lengths.clamp(0, ms).long()
+    return int(((lens + 31) // 32 * 32).sum())
+
+
 def held_fields(what: str, got, want) -> None:
     import torch
     for name, g, w in zip(got._fields, got, want):
@@ -2873,9 +2880,12 @@ def phase21(card: str, n: int = 131_072) -> dict:
     m_enum = mw_times(lambda: mak.math_eval_kernel(eb, el, want_max),
                       lambda: mak.eval_enum_minmax_reference(eb, el,
                                                              want_max))
-    m_bound = bound(nbytes((fb, fl, flat.err, flat.value)),
+    # each row's bytes within its length, the lengths (and want_max), the
+    # outputs; an operation a byte
+    m_bound = bound(row_bytes(fl, ms) + nbytes((fl, flat.err, flat.value)),
                     int(fl.clamp(0, ms).sum()))
-    e_bound = bound(nbytes((eb, el, want_max, enum.err, enum.value)),
+    e_bound = bound(row_bytes(el, ms)
+                    + nbytes((el, want_max, enum.err, enum.value)),
                     int(el.clamp(0, ms).sum()))
     log(f"phase 21 M [{card}]: {n} flat rows and {n} comma lists at MS "
         f"{ms}, every err and value equal to the plain version "
@@ -2910,7 +2920,11 @@ def phase21(card: str, n: int = 131_072) -> dict:
                                  f"supported of {n}")
         k, p = mw_times(lambda: mk.wildcard_match_kernel(*args, stars),
                         lambda: mk.wildcard_match_reference(*args, stars))
-        b = bound(nbytes((*args, *got)), int(slen.clamp(0, ms).sum()))
+        # the pattern rows within plen, the subject rows within slen, the
+        # lengths and the outputs; an operation a subject byte
+        plen = args[1]
+        b = bound(row_bytes(plen, ms) + row_bytes(slen, ms)
+                  + nbytes((plen, slen, *got)), int(slen.clamp(0, ms).sum()))
         w[label] = {"ms": k, "plain_ms": p, **b}
         log(f"phase 21 W {label} [{card}]: {n} subjects at MS {ms}, "
             f"max_stars {stars}, every field equal to the plain version "

@@ -14,7 +14,7 @@
 // For row r of bufs (N, MS) uint8 with lengths (N,) int32 it writes err[r]
 // and value[r] (int32), in one of two modes:
 //   flat         (want_max null) the row's expression;
-//   enumeration  (want_max (N,) uint8) min (0) or max (1) over the row's
+//   enumeration  (want_max (N,) bool) min (0) or max (1) over the row's
 //                comma-separated expressions, each evaluated flat, in turn,
 //                stopping at the first that errs.
 // Both equal the plain versions (eval_flat_reference,
@@ -37,8 +37,8 @@
 // (zero past the segment's length and past the row).
 //
 // What bounds it on this card: device-memory bytes. A call must read each
-// row's bytes (and its length) once and write 8 bytes a row; the work a
-// byte is a few integer operations.
+// row's bytes within its length (and the length) once and write 8 bytes a
+// row; the work a byte is a few integer operations.
 //
 // Design: one thread a row, one walk over the bytes, the classic two-stack
 // (shunting-yard) evaluation: the operand stack (int32) and the operator

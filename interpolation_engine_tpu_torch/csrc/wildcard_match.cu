@@ -27,8 +27,9 @@
 // Reads past a row's width read zero, as the JAX padding gives them.
 //
 // What bounds it on this card: device-memory bytes. A call must read each
-// subject row (and each pattern row, or the one shared row) and the lengths
-// once, and write 2 bytes and 1 + 2 * max_stars int32 a row.
+// subject row within slen (and each pattern row, or the one shared row,
+// within plen) and the lengths once, and write 2 bytes and
+// 1 + 2 * max_stars int32 a row.
 //
 // Design: one thread a row, no vectors. The JAX feasibility vector T_j (can
 // "* L_j * ... * L_K" match the subject from position i to the cut?) is a
@@ -56,6 +57,8 @@
 namespace {
 
 constexpr int MAX_LIT = 32;
+// The largest max_stars: each thread's scratch is four arrays of this size.
+constexpr int MAX_STARS = 64;
 constexpr int STAR = 42, NEWLINE = 10;
 
 struct Pattern {
@@ -186,13 +189,13 @@ struct MatchArgs {
   int* cap_len;
 };
 
-// SMAX bounds max_stars: the scratch lives in local memory.
-template <int SMAX>
+// The scratch lives in local memory.
 __global__ void __launch_bounds__(BLOCK)
     wildcard_match_kernel(const MatchArgs a) {
   const long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
   if (r >= a.n) return;
-  int stars[SMAX], last[SMAX + 1], trim_off[SMAX], trim_len[SMAX];
+  int stars[MAX_STARS], last[MAX_STARS + 1], trim_off[MAX_STARS],
+      trim_len[MAX_STARS];
   const long long pr = a.shared ? 0 : r;
   const long long c = r * a.max_stars;
   match_row(a.pat + pr * a.pms, a.pms, a.plen[pr], a.subj + r * a.ms, a.ms,
@@ -205,9 +208,6 @@ __global__ void __launch_bounds__(BLOCK)
 }  // namespace
 
 #ifdef __CUDACC__
-// The largest max_stars the kernel takes.
-extern "C" int wildcard_match_max_stars() { return 64; }
-
 // Launch on `stream`; returns cudaGetLastError() (0 on success). With
 // `shared` the one pattern row (and its length) serves every subject row.
 extern "C" int wildcard_match_launch(const uint8_t* pat, const int* plen,
@@ -218,17 +218,12 @@ extern "C" int wildcard_match_launch(const uint8_t* pat, const int* plen,
                                      int* n_caps, int* cap_off,
                                      int* cap_len, void* stream) {
   if (n <= 0) return 0;
-  if (pms < 0 || ms < 0 || max_stars < 0 ||
-      max_stars > wildcard_match_max_stars())
+  if (pms < 0 || ms < 0 || max_stars < 0 || max_stars > MAX_STARS)
     return (int)cudaErrorInvalidValue;
   const MatchArgs a{pat, plen, subj, slen, n, pms, ms, shared, max_stars,
                     ok, supported, n_caps, cap_off, cap_len};
   const unsigned grid = (unsigned)(((long long)n + BLOCK - 1) / BLOCK);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (max_stars <= 8)
-    wildcard_match_kernel<8><<<grid, BLOCK, 0, s>>>(a);
-  else
-    wildcard_match_kernel<64><<<grid, BLOCK, 0, s>>>(a);
+  wildcard_match_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 #endif

@@ -108,8 +108,6 @@ def load() -> ctypes.CDLL:
     lib.wildcard_match_launch.argtypes = [p, p, i, i, p, p] + [i] * 3 \
         + [p] * 6
     lib.wildcard_match_launch.restype = i
-    lib.wildcard_match_max_stars.argtypes = []
-    lib.wildcard_match_max_stars.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib

@@ -160,6 +160,10 @@ def _match_at_cut(subj, cut, pat, n_stars, seg_off, seg_len,
 
 _COUNT_LOCK = threading.Lock()
 
+# The largest max_stars the kernel takes: MAX_STARS in
+# csrc/wildcard_match.cu, which sizes each thread's scratch.
+KERNEL_MAX_STARS = 64
+
 
 def wildcard_match(pat, plen, subj, slen, max_stars: int) -> MatchResult:
     """Match each subject row against its pattern row (or against one
@@ -186,15 +190,19 @@ def wildcard_match_kernel(pat, plen, subj, slen,
     n_pat, pms = pat.shape
     if n_pat not in (1, rows):
         raise ValueError(f"{n_pat} pattern rows for {rows} subject rows")
-    from .build import load
-    lib = load()
-    if not 0 <= max_stars <= lib.wildcard_match_max_stars():
+    if not 0 <= max_stars <= KERNEL_MAX_STARS:
         raise ValueError(f"max_stars {max_stars} outside the kernel's "
-                         f"[0, {lib.wildcard_match_max_stars()}]")
+                         f"[0, {KERNEL_MAX_STARS}]")
+    plen = bs.col(plen, n_pat, dev)
+    slen = bs.col(slen, rows, dev)
+    for name, t, want in (("plen", plen, n_pat), ("slen", slen, rows)):
+        if t.shape not in ((), (want,)) or t.device != dev:
+            raise ValueError(f"{name}: want ({want},) on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
     pat = pat.contiguous()
     subj = subj.contiguous()
-    plen = bs.col(plen, n_pat, dev).expand(n_pat).contiguous()
-    slen = bs.col(slen, rows, dev).expand(rows).contiguous()
+    plen = plen.expand(n_pat).contiguous()
+    slen = slen.expand(rows).contiguous()
     ok = torch.empty(rows, dtype=torch.bool, device=dev)
     supported = torch.empty_like(ok)
     n_caps = torch.empty(rows, dtype=torch.int32, device=dev)
@@ -203,6 +211,8 @@ def wildcard_match_kernel(pat, plen, subj, slen,
     out = MatchResult(ok, supported, n_caps, cap_off, cap_len)
     if rows == 0:
         return out
+    from .build import load
+    lib = load()
     with torch.cuda.device(dev):
         rc = lib.wildcard_match_launch(
             pat.data_ptr(), plen.data_ptr(), pms, int(n_pat == 1),

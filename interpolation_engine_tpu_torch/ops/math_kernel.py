@@ -139,8 +139,8 @@ _COUNT_LOCK = threading.Lock()
 def math_eval_kernel(buf: torch.Tensor, length,
                      want_max=None) -> EvalResult:
     """Launch ``csrc/math_eval.cu`` on CUDA rows: the flat evaluator, or
-    with ``want_max`` (a bool or an (N,) bool tensor) min/max over each
-    row's comma-separated expressions. Raises if it cannot launch."""
+    with ``want_max`` (an (N,) bool tensor) min/max over each row's
+    comma-separated expressions. Raises if it cannot launch."""
     if buf.dtype != torch.uint8 or buf.dim() != 2:
         raise ValueError(f"buf: want uint8 2-d, got {buf.dtype} "
                          f"{buf.dim()}-d")
@@ -154,10 +154,13 @@ def math_eval_kernel(buf: torch.Tensor, length,
     if length.shape != (rows,) or length.device != dev:
         raise ValueError(f"length: want ({rows},) on {dev}, got "
                          f"{tuple(length.shape)} on {length.device}")
-    wm = None
     if want_max is not None:
-        wm = torch.as_tensor(want_max, device=dev).to(torch.uint8).expand(
-            rows).contiguous()
+        if (want_max.dtype != torch.bool or want_max.shape != (rows,)
+                or want_max.device != dev):
+            raise ValueError(f"want_max: want ({rows},) bool on {dev}, got "
+                             f"{want_max.dtype} {tuple(want_max.shape)} on "
+                             f"{want_max.device}")
+        want_max = want_max.contiguous()
     err = torch.empty(rows, dtype=torch.int32, device=dev)
     value = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows == 0:
@@ -167,7 +170,7 @@ def math_eval_kernel(buf: torch.Tensor, length,
     with torch.cuda.device(dev):
         rc = lib.math_eval_launch(
             buf.data_ptr(), length.data_ptr(),
-            None if wm is None else wm.data_ptr(), rows, ms,
+            None if want_max is None else want_max.data_ptr(), rows, ms,
             err.data_ptr(), value.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -364,7 +367,6 @@ def eval_enum_minmax_reference(buf, length, want_max) -> EvalResult:
     rows, n = buf.shape
     dev = buf.device
     length = bs.col(length, rows, dev).to(torch.int64)
-    want_max = torch.as_tensor(want_max, device=dev).expand(rows)
     start = torch.zeros(rows, dtype=torch.int64, device=dev)
     best = torch.zeros_like(start)
     err = torch.zeros_like(start)

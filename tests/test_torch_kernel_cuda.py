@@ -619,8 +619,9 @@ def test_math_eval_kernel_equals_plain(n, ms, mode, cuda):
     if ms == 7:     # lengths past the row and below 0
         lens = torch.randint(-2, ms + 6, (n,), generator=torch.Generator()
                              .manual_seed(n), dtype=torch.int32).to(cuda)
-    want_max = {"flat": None, "min": False, "max": True,
-                "mixed": torch.arange(n, device=cuda) % 3 == 0}[mode]
+    rows = torch.arange(n, device=cuda)
+    want_max = {"flat": None, "min": rows < 0, "max": rows >= 0,
+                "mixed": rows % 3 == 0}[mode]
     before = mak.math_eval_kernel.launches
     got = mak.math_eval_kernel(bufs, lens, want_max)
     want = (mak.eval_flat_reference(bufs, lens) if want_max is None else
@@ -638,7 +639,8 @@ def test_math_evaluator_dispatches_to_the_kernel_on_the_card(cuda):
               mak.eval_enum_minmax_reference)
     before = [fn.launches for fn in counts]
     mak.eval_flat(bufs, lens)
-    mak._eval_enum_minmax(bufs, lens, True)
+    mak._eval_enum_minmax(bufs, lens, torch.ones(64, dtype=torch.bool,
+                                                 device=cuda))
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(counts, before)] == [2, 0, 0]
 
@@ -701,3 +703,21 @@ def test_wildcard_match_kernel_refuses_what_it_cannot_take(cuda):
         mk.wildcard_match(pb, pl, sb, sl, 65)
     with pytest.raises(ValueError):
         mk.wildcard_match(pb[:3], pl[:3], sb, sl, 2)
+
+
+def test_wildcard_match_kernel_refuses_lengths_off_the_card(cuda):
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    pb, pl, sb, sl = wildcard_rows(8, 16, 5)
+    for args in ((pb, pl.cpu(), sb, sl), (pb, pl, sb, sl.cpu()),
+                 (pb, pl[:5], sb, sl), (pb, pl, sb, sl[:5])):
+        with pytest.raises(ValueError):
+            mk.wildcard_match_kernel(*args, 2)
+
+
+def test_math_eval_kernel_refuses_want_max_that_is_not_a_bool_row(cuda):
+    from interpolation_engine_tpu_torch.ops import math_kernel as mak
+    bufs, lens = expression_rows(8, 96, 6, lists=True)
+    rows = torch.arange(8, device=cuda)
+    for want_max in (rows % 2 == 0).cpu(), rows % 2, (rows[:5] > 2):
+        with pytest.raises(ValueError):
+            mak.math_eval_kernel(bufs, lens, want_max)

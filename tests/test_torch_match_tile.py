@@ -42,16 +42,18 @@ HARNESS = r"""
 #define __forceinline__ inline
 #include "wildcard_match.cu"
 
-// The kernel's launch, a row at a time (one thread a row on the card); the
-// scratch is max_stars (+ 1) ints, as the kernel's local arrays.
+extern "C" int rehearse_max_stars() { return MAX_STARS; }
+
+// The kernel's launch, a row at a time (one thread a row on the card), with
+// the kernel's scratch arrays.
 extern "C" void rehearse(const uint8_t* pat, const int* plen, int pms,
                          int shared, const uint8_t* subj, const int* slen,
                          int n, int ms, int max_stars, uint8_t* ok,
                          uint8_t* supported, int* n_caps, int* cap_off,
                          int* cap_len) {
-  int* scratch = (int*)malloc(sizeof(int) * (4 * max_stars + 1));
-  int *stars = scratch, *last = stars + max_stars,
-      *trim_off = last + max_stars + 1, *trim_len = trim_off + max_stars;
+  if (max_stars > MAX_STARS) abort();
+  int stars[MAX_STARS], last[MAX_STARS + 1], trim_off[MAX_STARS],
+      trim_len[MAX_STARS];
   for (int r = 0; r < n; ++r) {
     const long long pr = shared ? 0 : r;
     match_row(pat + pr * pms, pms, plen[pr], subj + (long long)r * ms, ms,
@@ -59,7 +61,6 @@ extern "C" void rehearse(const uint8_t* pat, const int* plen, int pms,
               supported + r, n_caps + r, cap_off + (long long)r * max_stars,
               cap_len + (long long)r * max_stars);
   }
-  free(scratch);
 }
 """
 
@@ -80,6 +81,7 @@ def rehearsal(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rehearse.argtypes = [p, p, i, i, p, p, i, i, i] + [p] * 5
     lib.rehearse.restype = None
+    lib.rehearse_max_stars.restype = i
     return lib
 
 
@@ -104,9 +106,9 @@ def rehearse(lib, pb, pl, sb, sl, max_stars):
 _JAX = {}
 
 
-def jax_match(pb, pl, sb, sl, max_stars):
-    """JAX's wildcard_match under vmap, in chunks of CHUNK rows (padded),
-    the pattern shared when it is one row."""
+def jax_match(pb, pl, sb, sl, max_stars, chunk=CHUNK):
+    """JAX's wildcard_match under vmap, in chunks of ``chunk`` rows
+    (padded), the pattern shared when it is one row."""
     shared = pb.shape[0] == 1
     key = (max_stars, shared)
     if key not in _JAX:
@@ -116,15 +118,15 @@ def jax_match(pb, pl, sb, sl, max_stars):
     fn = _JAX[key]
     n = sb.shape[0]
     parts = []
-    for s in range(0, n, CHUNK):
-        rows = [a[s:s + CHUNK] for a in ((sb, sl) if shared else
+    for s in range(0, n, chunk):
+        rows = [a[s:s + chunk] for a in ((sb, sl) if shared else
                                          (pb, pl, sb, sl))]
-        pad = CHUNK - rows[0].shape[0]
+        pad = chunk - rows[0].shape[0]
         rows = [np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1))
                 for a in rows]
         args = ([pb[0], pl[0]] + rows) if shared else rows
         res = fn(*map(jnp.asarray, args))
-        parts.append([np.asarray(f)[:CHUNK - pad] for f in res])
+        parts.append([np.asarray(f)[:chunk - pad] for f in res])
     return mk.MatchResult(*(np.concatenate(f) for f in zip(*parts)))
 
 
@@ -143,7 +145,8 @@ def pack(strings, width=MS, fill=None):
     return bufs, lens
 
 
-def held(lib, pats, subjs, max_stars=STARS, width=MS, fill=None):
+def held(lib, pats, subjs, max_stars=STARS, width=MS, fill=None,
+         chunk=CHUNK):
     """The rehearsed kernel == the plain version == JAX on every field of
     every row; one pattern string is shared by all rows."""
     shared = isinstance(pats, str)
@@ -153,7 +156,7 @@ def held(lib, pats, subjs, max_stars=STARS, width=MS, fill=None):
     ref = mk.wildcard_match_reference(*map(torch.from_numpy, (pb, pl, sb,
                                                               sl)),
                                       max_stars)
-    want = jax_match(pb, pl, sb, sl, max_stars)
+    want = jax_match(pb, pl, sb, sl, max_stars, chunk)
     for name, g, p, j in zip(mk.MatchResult._fields, got, ref, want):
         np.testing.assert_array_equal(g, p.numpy(), err_msg=f"{name} plain")
         np.testing.assert_array_equal(g, j, err_msg=f"{name} jax")
@@ -265,6 +268,23 @@ def test_more_stars_than_max_stars(rehearsal):
                ["aXbYc", "aXbYcZd", "abc", "abcx"])
     assert got.supported.tolist() == [True, False, False, False]
     assert got.n_caps.tolist() == [2, 2, 2, 2]
+
+
+def test_at_the_kernels_max_stars(rehearsal):
+    """max_stars at the kernel's limit (MAX_STARS, which sizes each
+    thread's scratch): 64 stars fill the scratch, 65 are unsupported."""
+    assert rehearsal.rehearse_max_stars() == mk.KERNEL_MAX_STARS
+    rng = random.Random(64)
+    pats = ["*".join(rng.choice(["", "a", "b"]) for _ in range(k + 1))
+            for k in (64, 64, 65, 63, 10, 0)]
+    subjs = ["".join(lit + rng.choice(["", "", "a", "ba"])
+                     for lit in p.split("*")) for p in pats]
+    subjs[1] = "b" + subjs[1]
+    got = held(rehearsal, pats, subjs, mk.KERNEL_MAX_STARS, width=160,
+               chunk=8)
+    assert got.n_caps.tolist() == [64, 64, 64, 63, 10, 0]
+    assert got.supported.tolist() == [True, True, False, True, True, True]
+    assert got.ok[0] and got.ok[3:].all()
 
 
 def test_segments_of_32_and_33_bytes(rehearsal):

@@ -362,8 +362,7 @@ def test_eval_math_bytes_through_the_rehearsal_equals_jax(
     def kernel(buf, length, want_max=None):
         n = buf.shape[0]
         lens = pmk.bs.col(length, n, buf.device).numpy()
-        wm = None if want_max is None else torch.as_tensor(
-            want_max).expand(n).numpy()
+        wm = None if want_max is None else want_max.numpy()
         calls.append(n)
         err, value = rehearse(rehearsal, buf.numpy(), lens, wm)
         return pmk.EvalResult(torch.from_numpy(err), torch.from_numpy(value))
@@ -381,17 +380,3 @@ def test_eval_math_bytes_through_the_rehearsal_equals_jax(
     np.testing.assert_array_equal(got.err.numpy(), want[0])
     np.testing.assert_array_equal(got.value.numpy(), want[1])
     assert calls and (got.err.numpy() == ik.ERR_OK).sum() > 50
-
-
-def test_enumeration_takes_one_bool_for_every_row(rehearsal, jax_fns):
-    """want_max as one Python bool, as the JAX function takes it: the
-    plain version (it took only a tensor before) and the kernel's wrapper
-    both take it for every row."""
-    bufs, lens = encode(["3,1,2", "5", "-1,-9", "2,7/2"])
-    for want in (False, True):
-        got = pmk._eval_enum_minmax(torch.from_numpy(bufs),
-                                    torch.from_numpy(lens), want)
-        err, value = held(rehearsal, jax_fns, bufs, lens,
-                          np.full(len(lens), want))
-        assert got.err.tolist() == err.tolist()
-        assert got.value.tolist() == value.tolist()
