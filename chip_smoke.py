@@ -3,8 +3,9 @@
 card and check it.
 
     python3 chip_smoke.py [--seed N]   # phases 1-21 and the result lines
-    python3 chip_smoke.py --turn TREE  # phase 13 and the chat filter's
-                                       # times with TREE's package
+    python3 chip_smoke.py --turn TREE  # phase 13, the chat filter's and
+                                       # M and W's times with TREE's
+                                       # package
 
 Phases, each of which raises on any failure (the script then exits non-zero
 and prints no result):
@@ -171,14 +172,16 @@ and prints no result):
    scan, M and W join their counts below (M and W's also from phases 15, 17
    and 18's general paths);
 21. M and W alone at the bench's general VMConfig (MS 96, max_stars 2),
-   131,072 rows each made from ``--seed``: (a) the math evaluator on flat
-   expressions (ints with near-wrap values, the seven operators, unary
-   signs, spaces, faults) and in its enumeration mode on comma lists with
-   a min or max per row; (b) the wildcard matcher on per-row patterns of
-   0-3 stars and segments up to 33 bytes (some unsupported) against
-   subjects up to 96 bytes, one in four ending in a newline, then on one
-   shared pattern; each kernel equal to its plain version on every field
-   of every row, then timed queued beside the plain version and its bound.
+   their registers, stack and shared bytes a block, then at 131,072 rows
+   (the bench's batch) and at 4,096 (phases 9 and 14's), each made from
+   ``--seed``: (a) the math evaluator on flat expressions (ints with
+   near-wrap values, the seven operators, unary signs, spaces, faults) and
+   in its enumeration mode on comma lists with a min or max per row; (b)
+   the wildcard matcher on per-row patterns of 0-3 stars and segments up
+   to 33 bytes (some unsupported) against subjects up to 96 bytes, one in
+   four ending in a newline, then on one shared pattern; each kernel equal
+   to its plain version on every field of every row, then timed queued
+   beside its bound (the plain version at 131,072).
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -2369,8 +2372,10 @@ def turn(tree: str) -> int:
     """``--turn TREE``: with the package of the checkout TREE (this one,
     or a parent's unpacked beside it), phase 13 (its checks, its ring wall
     time and the sibling's launch), then phase 19's batch and
-    ``filter_times`` and ``filter_parts`` on it, as one JSON line. Run on
-    two trees in turns in one call, it compares them on one card."""
+    ``filter_times`` and ``filter_parts`` on it, then M and W's times on
+    phase 21's rows at 131,072 and 4,096 (``mw_turn``), as one JSON line.
+    Run on two trees in turns in one call, it compares them on one
+    card."""
     tree = os.path.abspath(tree)
     sys.path[:0] = [tree, os.path.join(tree, "tests")]
     from interpolation_engine_tpu_torch.ops import build
@@ -2383,8 +2388,9 @@ def turn(tree: str) -> int:
     _, bufs, lengths, _ = filter_batch(16_384, 8192)
     times = filter_times(bufs, lengths)
     times["parts"] = filter_parts(bufs, lengths)
+    del bufs, lengths
     print(json.dumps({"tree": tree, "card": card, "phase13": promotion,
-                      **times}))
+                      **times, "mw": mw_turn()}))
     return 0
 
 
@@ -2837,66 +2843,36 @@ def held_fields(what: str, got, want) -> None:
                                  f"from the plain version on {bad} rows")
 
 
-def mw_times(kernel, plain, calls: int = 20) -> tuple:
-    """ms a call after the check's calls: the kernel queued (``timed``),
-    the plain version once, unqueued (it syncs the host itself)."""
-    k = timed(lambda _: kernel(), None, calls, True) / calls * 1e3
-    return k, timed(lambda _: plain(), None, 1) * 1e3
-
-
-def phase21(card: str, n: int = 131_072) -> dict:
-    """M and W alone at the bench's general VMConfig (MS 96, max_stars 2):
-    each kernel equal to its plain version on every field of every row of
-    rows made from ``--seed``, then both timed beside their bounds."""
+def mw_inputs(n: int, seed: int) -> dict:
+    """Phase 21's rows at the bench's general VMConfig (MS 96, max_stars
+    2), made from ``seed`` on the card: for M flat expressions and comma
+    lists with a min or max a row, for W per-row patterns against their
+    subjects and one shared pattern against its own. Each entry is
+    (arguments, the kernel, the plain version, the bound's bytes and
+    operations)."""
     import random
     import numpy as np
     import torch
     from interpolation_engine_tpu_torch import bench
-    from interpolation_engine_tpu_torch.ops import interp_kernel as ik
     from interpolation_engine_tpu_torch.ops import match_kernel as mk
     from interpolation_engine_tpu_torch.ops import math_kernel as mak
     ms, stars = bench.GENERAL_CFG["max_str"], bench.GENERAL_CFG["max_stars"]
-    rng, gen = random.Random(SEED), np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-
-    # (a) M: flat expressions, and comma lists for the enumeration mode
+    rng, gen = random.Random(seed), np.random.default_rng(seed)
+    out = {}
     fb, fl = byte_rows([math_expr(rng) for _ in range(n)], ms, gen)
     eb, el = byte_rows([",".join(math_expr(rng) for _ in range(
         rng.randint(1, 4))) + rng.choice(("", "", ",")) for _ in range(n)],
         ms, gen)
     want_max = torch.from_numpy(gen.integers(0, 2, n).astype(bool)).cuda()
-    flat = mak.math_eval_kernel(fb, fl)
-    held_fields("M flat", flat, mak.eval_flat_reference(fb, fl))
-    enum = mak.math_eval_kernel(eb, el, want_max)
-    held_fields("M enumeration", enum,
-                mak.eval_enum_minmax_reference(eb, el, want_max))
-    torch.cuda.synchronize()
-    for label, res in (("flat", flat), ("enumeration", enum)):
-        errs = set(res.err.unique().tolist())
-        if not {ik.ERR_OK, ik.ERR_ASSERT, ik.ERR_HOST} <= errs:
-            raise AssertionError(f"phase 21 M {label}: outcomes {errs}")
-    m_flat = mw_times(lambda: mak.math_eval_kernel(fb, fl),
-                      lambda: mak.eval_flat_reference(fb, fl))
-    m_enum = mw_times(lambda: mak.math_eval_kernel(eb, el, want_max),
-                      lambda: mak.eval_enum_minmax_reference(eb, el,
-                                                             want_max))
     # each row's bytes within its length, the lengths (and want_max), the
-    # outputs; an operation a byte
-    m_bound = bound(row_bytes(fl, ms) + nbytes((fl, flat.err, flat.value)),
-                    int(fl.clamp(0, ms).sum()))
-    e_bound = bound(row_bytes(el, ms)
-                    + nbytes((el, want_max, enum.err, enum.value)),
-                    int(el.clamp(0, ms).sum()))
-    log(f"phase 21 M [{card}]: {n} flat rows and {n} comma lists at MS "
-        f"{ms}, every err and value equal to the plain version "
-        f"({int((flat.err == 0).sum())} and {int((enum.err == 0).sum())} "
-        f"rows OK); flat: kernel {m_flat[0]:.5f} ms/call queued, plain "
-        f"{m_flat[1]:.3f} ms/call, bound {m_bound['bound_ms']:.5f} ms "
-        f"({m_bound['bound_by']}); enumeration: kernel {m_enum[0]:.5f}, "
-        f"plain {m_enum[1]:.3f}, bound {e_bound['bound_ms']:.5f}")
-    del fb, fl, eb, el, want_max, flat, enum
-
-    # (b) W: per-row patterns, then one shared pattern
+    # outputs (8 bytes a row); an operation a byte
+    out["M flat"] = ((fb, fl), mak.math_eval_kernel, mak.eval_flat_reference,
+                     row_bytes(fl, ms) + nbytes((fl,)) + 8 * n,
+                     int(fl.clamp(0, ms).sum()))
+    out["M enumeration"] = ((eb, el, want_max), mak.math_eval_kernel,
+                            mak.eval_enum_minmax_reference,
+                            row_bytes(el, ms) + nbytes((el, want_max))
+                            + 8 * n, int(el.clamp(0, ms).sum()))
     pats = [wild_pattern(rng) for _ in range(n)]
     pb, pl = byte_rows(pats, ms, gen)
     sb, sl = byte_rows([wild_subject(rng, p, ms) for p in pats], ms, gen)
@@ -2904,37 +2880,111 @@ def phase21(card: str, n: int = 131_072) -> dict:
     qb, ql = byte_rows([shared], ms, gen)
     tb, tl = byte_rows([wild_subject(rng, shared, ms) for _ in range(n)], ms,
                        gen)
-    w = {}
-    for label, args in (("per-row patterns", (pb, pl, sb, sl)),
-                        ("one shared pattern", (qb, ql, tb, tl))):
-        got = mk.wildcard_match_kernel(*args, stars)
-        held_fields(f"W {label}", got, mk.wildcard_match_reference(*args,
-                                                                    stars))
-        subj, slen = args[2:]
-        ok, sup = int(got.ok.sum()), int(got.supported.sum())
-        nl = int((got.ok & (subj.gather(1, (slen - 1).clamp(0, ms - 1)
-                                        .long()[:, None])[:, 0] == 10)).sum())
-        if not (0 < ok < n) or not (0 < sup < n if args[0].shape[0] == n
-                                    else sup == n):
-            raise AssertionError(f"phase 21 W {label}: {ok} matched, {sup} "
-                                 f"supported of {n}")
-        k, p = mw_times(lambda: mk.wildcard_match_kernel(*args, stars),
-                        lambda: mk.wildcard_match_reference(*args, stars))
+    for label, (p_b, p_l, s_b, s_l) in (("W per-row", (pb, pl, sb, sl)),
+                                        ("W shared", (qb, ql, tb, tl))):
         # the pattern rows within plen, the subject rows within slen, the
-        # lengths and the outputs; an operation a subject byte
-        plen = args[1]
-        b = bound(row_bytes(plen, ms) + row_bytes(slen, ms)
-                  + nbytes((plen, slen, *got)), int(slen.clamp(0, ms).sum()))
-        w[label] = {"ms": k, "plain_ms": p, **b}
-        log(f"phase 21 W {label} [{card}]: {n} subjects at MS {ms}, "
-            f"max_stars {stars}, every field equal to the plain version "
-            f"({ok} matched, {nl} of them ending in a newline, {sup} "
-            f"supported); kernel {k:.5f} ms/call queued, plain {p:.3f} "
-            f"ms/call, bound {b['bound_ms']:.5f} ms ({b['bound_by']}), the "
-            f"kernel at {b['bound_ms'] / k * 100:.1f} % of it")
+        # lengths, the outputs (2 bytes and 1 + 2 * max_stars int32 a
+        # row); an operation a subject byte
+        out[label] = ((p_b, p_l, s_b, s_l, stars), mk.wildcard_match_kernel,
+                      mk.wildcard_match_reference,
+                      row_bytes(p_l, ms) + row_bytes(s_l, ms)
+                      + nbytes((p_l, s_l)) + n * (2 + 4 * (1 + 2 * stars)),
+                      int(s_l.clamp(0, ms).sum()))
+    return out
+
+
+def mw_ms(kernel, args, calls: int = 20) -> float:
+    """ms a call of the kernel, queued (``timed``), after a warm call."""
+    kernel(*args)
+    return timed(lambda _: kernel(*args), None, calls, True) / calls * 1e3
+
+
+MW_SIZES = (131_072, 4_096)   # the bench's batch; phases 9 and 14's counts
+
+
+def mw_turn() -> dict:
+    """M and W's times at MW_SIZES with the package imported (``--turn``):
+    each kernel first held to its plain version at 4,096 rows."""
+    out = {}
+    for n in MW_SIZES:
+        cases = mw_inputs(n, SEED)
+        out[str(n)] = {}
+        for label, (args, kernel, plain, _, _) in cases.items():
+            if n == MW_SIZES[-1]:
+                held_fields(f"{label} at {n}", kernel(*args), plain(*args))
+            out[str(n)][label] = mw_ms(kernel, args)
+        del cases
+    return out
+
+
+def mw_attributes(card: str) -> str:
+    """M and W's registers, stack bytes and shared bytes a block (at MS
+    96; W per row and shared, max_stars 2 and 64)."""
+    import ctypes
+    from interpolation_engine_tpu_torch.ops import build
+    lib = build.load()
+    out = (ctypes.c_int * 4)()
+    rc = lib.math_eval_attributes(96, out)
+    parts = [f"M {out[0]} registers, {out[1]} stack bytes, {out[2]} shared "
+             f"bytes a block of {out[3]}"]
+    for shared, stars in ((0, 2), (1, 2), (0, 64)):
+        rc = rc or lib.wildcard_match_attributes(96, 96, shared, stars, out)
+        parts.append(f"W {'shared' if shared else 'per-row'} max_stars "
+                     f"{stars}: {out[0]} registers, {out[1]} stack bytes, "
+                     f"{out[2]} shared bytes")
+    if rc:
+        raise AssertionError(f"phase 21: attributes failed, CUDA error {rc}")
+    return f"phase 21 attributes [{card}]: " + "; ".join(parts)
+
+
+def phase21(card: str) -> dict:
+    """M and W alone at the bench's general VMConfig (MS 96, max_stars 2),
+    at 131,072 and 4,096 rows: each kernel equal to its plain version on
+    every field of every row of rows made from ``--seed``, in both modes of
+    each, then timed beside its bound (the plain versions at 131,072)."""
+    import torch
+    from interpolation_engine_tpu_torch.ops import interp_kernel as ik
+    t0 = time.perf_counter()
+    log(mw_attributes(card))
+    line = {}
+    for n in MW_SIZES:
+        cases = mw_inputs(n, SEED)
+        for label, (args, kernel, plain, nb, ops) in cases.items():
+            got = kernel(*args)
+            held_fields(f"{label} at {n}", got, plain(*args))
+            torch.cuda.synchronize()
+            if label.startswith("M"):
+                errs = set(got.err.unique().tolist())
+                if not {ik.ERR_OK, ik.ERR_ASSERT, ik.ERR_HOST} <= errs:
+                    raise AssertionError(f"phase 21 {label} at {n}: "
+                                         f"outcomes {errs}")
+                what = f"{int((got.err == 0).sum())} rows OK"
+            else:
+                ok, sup = int(got.ok.sum()), int(got.supported.sum())
+                if not (0 < ok < n) or not (
+                        sup == n if label == "W shared" else 0 < sup < n):
+                    raise AssertionError(f"phase 21 {label} at {n}: {ok} "
+                                         f"matched, {sup} supported")
+                subj, slen = args[2:4]
+                last = subj.gather(1, (slen - 1).clamp(0, subj.shape[1] - 1)
+                                   .long()[:, None])[:, 0]
+                what = (f"{ok} matched, {int((got.ok & (last == 10)).sum())}"
+                        f" of them ending in a newline, {sup} supported")
+            k = mw_ms(kernel, args)
+            p = (timed(lambda _: plain(*args), None, 1) * 1e3
+                 if n == MW_SIZES[0] else None)
+            b = bound(nb, ops)
+            log(f"phase 21 {label} [{card}]: {n} rows at MS 96, every field "
+                f"equal to the plain version ({what}); kernel {k:.5f} "
+                f"ms/call queued, " + (f"plain {p:.3f} ms/call, "
+                                       if p is not None else "")
+                + f"bound {b['bound_ms']:.5f} ms ({b['bound_by']}), the "
+                f"kernel at {b['bound_ms'] / k * 100:.1f} % of it")
+            if n == MW_SIZES[0]:
+                line[label] = {"ms": k, "plain_ms": p, **b}
+        del cases
     log(f"phase 21 {time.perf_counter() - t0:.1f} s")
-    return {"math": {"ms": m_flat[0], "plain_ms": m_flat[1], **m_bound},
-            "match": w["one shared pattern"]}
+    return {"math": line["M flat"], "match": line["W shared"]}
 
 
 def programs() -> dict:
@@ -2978,9 +3028,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the generated inputs (default 0)")
     parser.add_argument("--turn", metavar="TREE",
-                        help="run only phase 13 and the chat filter's "
-                        "times, with the package of the checkout TREE, and "
-                        "print one JSON line")
+                        help="run only phase 13, the chat filter's and M "
+                        "and W's times, with the package of the checkout "
+                        "TREE, and print one JSON line")
     args = parser.parse_args(argv)
     SEED = args.seed
     import torch

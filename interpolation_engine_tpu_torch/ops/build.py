@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together) and the objects link into one
 shared library with a plain C interface, under ``_build/`` (git-ignored),
-named by a hash of the sources and flags so an edited source never loads a
-stale build. Nothing here includes PyTorch's headers, so a build takes
+named by a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited source never loads a stale build. Nothing here includes PyTorch's headers, so a build takes
 seconds. The library is loaded once per process.
 """
 
@@ -34,7 +34,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
@@ -108,6 +108,10 @@ def load() -> ctypes.CDLL:
     lib.wildcard_match_launch.argtypes = [p, p, i, i, p, p] + [i] * 3 \
         + [p] * 6
     lib.wildcard_match_launch.restype = i
+    lib.math_eval_attributes.argtypes = [i, ints]
+    lib.math_eval_attributes.restype = i
+    lib.wildcard_match_attributes.argtypes = [i] * 4 + [ints]
+    lib.wildcard_match_attributes.restype = i
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,9 +13,10 @@ supported: the caller defers to the host.
 Each row has its own subject; the pattern is either per row or one row
 shared by all.
 
-``wildcard_match`` launches ``csrc/wildcard_match.cu`` on CUDA tensors (one
-thread a row; the right-to-left feasibility pass is one integer a star, the
-rightmost feasible position: ``wildcard_match_kernel``) or raises; on CPU
+``wildcard_match`` launches ``csrc/wildcard_match.cu`` on CUDA tensors (a
+block of 128 rows staged in shared memory, one thread a row; the
+right-to-left feasibility pass is one integer a star, the rightmost
+feasible position: ``wildcard_match_kernel``) or raises; on CPU
 tensors, and only there, it runs ``wildcard_match_reference``, the plain
 version described above, which works on any device so that it can be held
 against the kernel on the card. Both count their launches in
@@ -161,7 +162,8 @@ def _match_at_cut(subj, cut, pat, n_stars, seg_off, seg_len,
 _COUNT_LOCK = threading.Lock()
 
 # The largest max_stars the kernel takes: MAX_STARS in
-# csrc/wildcard_match.cu, which sizes each thread's scratch.
+# csrc/wildcard_match.cu (a block's shared scratch is 2 * max_stars words a
+# thread).
 KERNEL_MAX_STARS = 64
 
 

@@ -11,7 +11,8 @@ the paren-free rest is evaluated with Python's operator semantics.
 A row is ``(MS,)`` uint8 bytes with an int32 length. The paren passes are
 batched torch. The paren-free evaluation (``eval_flat``) and the min/max
 over a comma list (``_eval_enum_minmax``) launch ``csrc/math_eval.cu`` on
-CUDA tensors (one thread a row, one walk over its bytes: ``math_eval_kernel``)
+CUDA tensors (a block of 128 rows staged in shared memory, one thread a
+row, one walk over its bytes: ``math_eval_kernel``)
 or raise; on CPU tensors, and only there, they run their plain versions,
 ``eval_flat_reference`` and ``eval_enum_minmax_reference``, which work on
 any device so that they can be held against the kernel on the card. The

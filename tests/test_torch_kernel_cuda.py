@@ -721,3 +721,158 @@ def test_math_eval_kernel_refuses_want_max_that_is_not_a_bool_row(cuda):
     for want_max in (rows % 2 == 0).cpu(), rows % 2, (rows[:5] > 2):
         with pytest.raises(ValueError):
             mak.math_eval_kernel(bufs, lens, want_max)
+
+
+# the block design of M and W (rows staged in shared memory): the shapes of
+# the g++ rehearsals' hazard tests, on the card against the plain versions
+
+def on_card_at_offset(rows, offset):
+    """Rows on the card as a contiguous view ``offset`` bytes into a larger
+    buffer."""
+    n, ms = rows.shape
+    big = torch.full((n * ms + offset + 32,), 42, dtype=torch.uint8,
+                     device=rows.device)
+    view = big[offset:offset + n * ms].view(n, ms)
+    view.copy_(rows)
+    assert view.is_contiguous()
+    return view
+
+
+def math_held(bufs, lens, cuda):
+    from interpolation_engine_tpu_torch.ops import math_kernel as mak
+    rows = torch.arange(bufs.shape[0], device=cuda)
+    for want_max in (None, rows % 2 == 0):
+        got = mak.math_eval_kernel(bufs, lens, want_max)
+        want = (mak.eval_flat_reference(bufs, lens) if want_max is None else
+                mak.eval_enum_minmax_reference(bufs, lens, want_max))
+        torch.cuda.synchronize()
+        assert torch.equal(got.err, want.err)
+        assert torch.equal(got.value, want.value)
+
+
+def match_held(pb, pl, sb, sl, max_stars):
+    from interpolation_engine_tpu_torch.ops import match_kernel as mk
+    got = mk.wildcard_match_kernel(pb, pl, sb, sl, max_stars)
+    want = mk.wildcard_match_reference(pb, pl, sb, sl, max_stars)
+    torch.cuda.synchronize()
+    for name, g, w in zip(mk.MatchResult._fields, got, want):
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 3 * 128 + 37])
+def test_math_and_wildcard_partial_last_block(n, cuda):
+    math_held(*expression_rows(n, 96, n, lists=True), cuda)
+    match_held(*wildcard_rows(n, 96, n), 2)
+    match_held(*wildcard_rows(n, 96, n, shared=True, stars=2), 2)
+
+
+def test_math_and_wildcard_lengths_past_ms_and_of_zero(cuda):
+    gen = torch.Generator().manual_seed(7)
+
+    def mixed(lens):
+        pick = torch.randint(0, 4, lens.shape, generator=gen).to(cuda)
+        wide = torch.randint(97, 300, lens.shape, generator=gen,
+                             dtype=torch.int32).to(cuda)
+        lens = torch.where(pick == 0, 0, lens)
+        lens = torch.where(pick == 1, wide, lens)
+        return torch.where(pick == 2, -3, lens).to(torch.int32)
+
+    bufs, lens = expression_rows(700, 96, 7, lists=True)
+    math_held(bufs, mixed(lens), cuda)
+    pb, pl, sb, sl = wildcard_rows(700, 96, 7)
+    match_held(pb, mixed(pl), sb, mixed(sl), 2)
+
+
+def test_wildcard_literal_straddling_a_word_boundary_at_every_offset(cuda):
+    import numpy as np
+    import chip_smoke as cs
+    pats, subjs = [], []
+    for m in (1, 2, 3, 4, 5, 7, 8, 9, 31, 32):
+        lit = "".join("ab"[(k * 7 + m) % 3 % 2] for k in range(m))
+        for po in range(4):
+            for so in range(4):
+                for bad in (None, 0, m - 1):
+                    s = list(lit)
+                    if bad is not None:
+                        s[bad] = "x"
+                    pats.append("z" * po + "*" + lit + "*")
+                    subjs.append("z" * po + "y" * so + "".join(s) + "yy")
+                    pats.append("*" + "z" * po + lit)
+                    subjs.append("w" * (so + 4) + "z" * po + "".join(s))
+    gen = np.random.default_rng(8)
+    got = match_held(*cs.byte_rows(pats, 96, gen), *cs.byte_rows(subjs, 96,
+                                                                 gen), 2)
+    assert got.ok.any() and not got.ok.all()
+
+
+def test_math_int_min_by_minus_one_and_power_by_squaring(cuda):
+    import numpy as np
+    import chip_smoke as cs
+    bases = ["0", "1", "2", "3", "7", "46341", "2147483647", "2147483648",
+             "4294967295", "4294967293"]
+    exprs = [f"{b} ** {e}" for b in bases for e in range(41)]
+    exprs += ["-2147483648 // -1", "2147483648 // -1", "-2147483648 % -1",
+              "2147483648 / -1", "2147483648 // 4294967295"]
+    math_held(*cs.byte_rows(exprs, 96, np.random.default_rng(9)), cuda)
+
+
+def test_wildcard_shared_pattern_staged_once_and_max_stars_64(cuda):
+    for seed in range(3):
+        match_held(*wildcard_rows(500, 96, 20 + seed, shared=True, stars=2),
+                   3)
+    import random
+    import numpy as np
+    import chip_smoke as cs
+    rng = random.Random(64)
+    pats = ["*".join(rng.choice(["", "a", "b"]) for _ in range(
+        rng.randint(1, 70))) for _ in range(300)]
+    subjs = ["".join(lit + rng.choice(["", "a"]) for lit in p.split("*"))
+             for p in pats]
+    gen = np.random.default_rng(64)
+    match_held(*cs.byte_rows(pats, 96, gen), *cs.byte_rows(subjs, 96, gen),
+               64)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 16])
+def test_math_and_wildcard_rows_at_unaligned_bases(offset, cuda):
+    bufs, lens = expression_rows(300, 96, offset, lists=True)
+    math_held(on_card_at_offset(bufs, offset), lens, cuda)
+    pb, pl, sb, sl = wildcard_rows(300, 24, offset)
+    match_held(on_card_at_offset(pb, offset), pl,
+               on_card_at_offset(sb, offset), sl, 2)
+    pb, pl, sb, sl = wildcard_rows(300, 96, offset)
+    match_held(on_card_at_offset(pb, offset), pl,
+               on_card_at_offset(sb, offset), sl, 2)
+
+
+def test_math_and_wildcard_rows_wider_than_the_stage(cuda):
+    import random
+    import numpy as np
+    import chip_smoke as cs
+    rng = random.Random(600)
+    gen = np.random.default_rng(600)
+    exprs = [("," if k % 2 else " + ").join(
+        cs.math_expr(rng) for _ in range(rng.randint(20, 60)))
+        for k in range(300)]
+    math_held(*cs.byte_rows(exprs, 600, gen), cuda)
+    pats, subjs = [], []
+    for _ in range(300):
+        lits = ["".join(rng.choice("ab") for _ in range(rng.randint(0, 30)))
+                for _ in range(rng.randint(1, 4))]
+        pats.append("*".join(lits))
+        subjs.append("".join(lit + "".join(rng.choice("ab\n") for _ in range(
+            rng.randint(0, 250))) for lit in lits[:-1]) + lits[-1])
+    got = match_held(*cs.byte_rows(pats, 600, gen),
+                     *cs.byte_rows(subjs, 600, gen), 3)
+    assert got.ok.sum() > 20
+
+
+@pytest.mark.parametrize("n", [4_096, 10_000, 20_000, 70_000])
+def test_math_and_wildcard_at_each_rows_a_warp(n, cuda):
+    """Calls of 4,096 to 70,000 rows: on an H100's 132 SMs the matcher
+    takes 4, 16, 32 and 32 rows a warp, the evaluator 1, 4, 8 and 32 (fewer
+    on fewer SMs)."""
+    math_held(*expression_rows(n, 96, n, lists=True), cuda)
+    match_held(*wildcard_rows(n, 96, n), 2)
+    match_held(*wildcard_rows(n, 96, n, shared=True, stars=2), 2)

@@ -1,11 +1,17 @@
 """A rehearsal of the wildcard-matcher kernel (``csrc/wildcard_match.cu``) on
 the CPU.
 
-The kernel's per-row function (``match_row``) compiles with g++ under a
-small header that defines the CUDA qualifiers away; the harness runs it row
-by row, as the kernel's threads do, with outputs that start as garbage.
-Every field of every row (``ok``, ``supported``, ``n_caps``, ``cap_off``,
-``cap_len``, unsupported rows included) must equal the plain version
+The kernel's phases compile with g++ under a small header that defines the
+CUDA qualifiers away and stands in for the intrinsics it uses (``__popc``,
+``__clz``, ``__ffs``, ``__funnelshift_r``, ``uint4``). The harness runs
+them block by block as the card would between its barrier: ``stage_block``
+for every thread of a block (its subject rows within slen, its pattern rows
+within plen or the one shared pattern, into shared memory), then
+``match_thread`` for every thread. Shared memory starts as garbage
+(pattern, subject and newline bytes) before every block, a guard past its
+end must stay untouched, and the outputs start as garbage. Every field of
+every row (``ok``, ``supported``, ``n_caps``, ``cap_off``, ``cap_len``,
+unsupported rows included) must equal the plain version
 (``wildcard_match_reference``) and the JAX package's ``wildcard_match``
 (jitted under ``vmap`` on the CPU) bit for bit: on the patterns and
 subjects of ``tests/test_match_kernel.py``, on seeded random patterns
@@ -33,34 +39,86 @@ CSRC = Path(mk.__file__).resolve().parent.parent / "csrc"
 MS = 96             # the bench's general VMConfig
 STARS = 2           # its max_stars
 CHUNK = 256         # rows per JAX call: one compile per shape
+SMS = 132           # an H100's SMs: the kernel's rows a warp follow them
 
 HARNESS = r"""
 #include <stdint.h>
 #include <stdlib.h>
+#include <string.h>
 #define __device__
 #define __host__
 #define __forceinline__ inline
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline int __clz(int x) {
+  return x ? __builtin_clz((unsigned)x) : 32;
+}
+static inline int __ffs(int x) { return __builtin_ffs(x); }
+static inline unsigned __funnelshift_r(unsigned lo, unsigned hi,
+                                       unsigned s) {
+  s &= 31;
+  return s ? (lo >> s) | (hi << (32 - s)) : lo;
+}
 #include "wildcard_match.cu"
+
+static const char GARBAGE[] = "ab*\nba\xff";
 
 extern "C" int rehearse_max_stars() { return MAX_STARS; }
 
-// The kernel's launch, a row at a time (one thread a row on the card), with
-// the kernel's scratch arrays.
-extern "C" void rehearse(const uint8_t* pat, const int* plen, int pms,
-                         int shared, const uint8_t* subj, const int* slen,
-                         int n, int ms, int max_stars, uint8_t* ok,
-                         uint8_t* supported, int* n_caps, int* cap_off,
-                         int* cap_len) {
-  if (max_stars > MAX_STARS) abort();
-  int stars[MAX_STARS], last[MAX_STARS + 1], trim_off[MAX_STARS],
-      trim_len[MAX_STARS];
-  for (int r = 0; r < n; ++r) {
-    const long long pr = shared ? 0 : r;
-    match_row(pat + pr * pms, pms, plen[pr], subj + (long long)r * ms, ms,
-              slen[r], max_stars, stars, last, trim_off, trim_len, ok + r,
-              supported + r, n_caps + r, cap_off + (long long)r * max_stars,
-              cap_len + (long long)r * max_stars);
+// The kernel's launch on a card of `sms` SMs (rows_a_warp picks the rows a
+// warp from the kernel's WARPS_AN_SM, a block 4 * rpw rows), block by block of ROWS threads; in a block
+// each phase runs for every thread before the next one starts, as the
+// kernel's barrier orders them. Shared memory is garbage before each block.
+// 0: done; -1: arguments refused; -2: a block wrote past its shared memory;
+// -3: a thread wrote shared memory outside its own column (word k * ROWS +
+// t of the scratch).
+extern "C" int rehearse(const uint8_t* pat, const int* plen, int pms,
+                        int shared, const uint8_t* subj, const int* slen,
+                        int n, int ms, int max_stars, uint8_t* ok,
+                        uint8_t* supported, int* n_caps, int* cap_off,
+                        int* cap_len, int sms) {
+  if (n <= 0) return 0;
+  if (pms < 0 || ms < 0 || max_stars < 0 || max_stars > MAX_STARS)
+    return -1;
+  const int rpw = stage::rows_a_warp(n, sms, WARPS_AN_SM);
+  const MatchArgs a{pat, plen, subj, slen, n, pms, ms, shared, max_stars,
+                    rpw, ok, supported, n_caps, cap_off, cap_len};
+  const MatchLayout l = match_layout(ms, pms, shared, max_stars);
+  const int guard = 64, size = l.bytes + guard;
+  uint8_t* sm = (uint8_t*)aligned_alloc(16, (size + 15) / 16 * 16);
+  uint8_t* before = (uint8_t*)malloc(size);
+  const int g = (int)sizeof(GARBAGE) - 1;
+  int rc = 0;
+  for (int b = 0; (long long)b * 4 * rpw < n && rc == 0; ++b) {
+    for (int j = 0; j < size; ++j) sm[j] = GARBAGE[(j + b) % g];
+    for (int t = 0; t < ROWS; ++t) stage_block(a, l, b, t, ROWS, sm);
+    memcpy(before, sm, size);
+    for (int t = 0; t < ROWS && rc == 0; ++t) {
+      match_thread(a, l, b, t, sm);
+      for (int j = 0; j < size; ++j)
+        if (sm[j] != before[j] &&
+            (j < l.scratch || (j - l.scratch) / 4 % ROWS != t))
+          rc = -3;
+      memcpy(before, sm, size);
+    }
+    for (int j = l.bytes; j < size; ++j)
+      if (sm[j] != (uint8_t)GARBAGE[(j + b) % g]) rc = -2;
   }
+  free(sm);
+  free(before);
+  return rc;
+}
+
+extern "C" int rows_a_warp(long long n, int sms) {
+  return stage::rows_a_warp(n, sms, WARPS_AN_SM);
+}
+
+extern "C" void layout(int ms, int pms, int shared, int max_stars,
+                       int* out8) {
+  const MatchLayout l = match_layout(ms, pms, shared, max_stars);
+  const int v[8] = {l.s_cap, l.s_stride, l.p_cap, l.p_stride, l.pat,
+                    l.scratch, l.bytes, ROWS};
+  for (int k = 0; k < 8; ++k) out8[k] = v[k];
 }
 """
 
@@ -73,19 +131,33 @@ def rehearsal(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("match_rehearsal")
     (tmp / "harness.cpp").write_text(HARNESS)
     so = tmp / "librehearsal.so"
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wall",
-                    "-Werror", "-I", str(CSRC), "-o", str(so),
+    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                    "-fno-strict-aliasing", "-Wall", "-Werror",
+                    "-Wno-unknown-pragmas", "-Wno-maybe-uninitialized",
+                    "-I", str(CSRC), "-o", str(so),
                     str(tmp / "harness.cpp")], check=True,
                    capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rehearse.argtypes = [p, p, i, i, p, p, i, i, i] + [p] * 5
-    lib.rehearse.restype = None
+    lib.rehearse.argtypes = [p, p, i, i, p, p, i, i, i] + [p] * 5 + [i]
+    lib.rehearse.restype = i
     lib.rehearse_max_stars.restype = i
+    lib.rows_a_warp.argtypes = [ctypes.c_longlong, i]
+    lib.rows_a_warp.restype = i
+    lib.layout.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.layout.restype = None
     return lib
 
 
-def rehearse(lib, pb, pl, sb, sl, max_stars):
+def layout(lib, ms, pms, shared, max_stars) -> dict:
+    """The kernel's shared memory for a block (``match_layout``)."""
+    out = (ctypes.c_int * 8)()
+    lib.layout(ms, pms, int(shared), max_stars, out)
+    return dict(zip(("s_cap", "s_stride", "p_cap", "p_stride", "pat",
+                     "scratch", "bytes", "rows"), out))
+
+
+def rehearse(lib, pb, pl, sb, sl, max_stars, sms=SMS):
     n, ms = sb.shape
     pb, sb = (np.ascontiguousarray(a, np.uint8) for a in (pb, sb))
     pl, sl = (np.ascontiguousarray(a, np.int32) for a in (pl, sl))
@@ -94,10 +166,12 @@ def rehearse(lib, pb, pl, sb, sl, max_stars):
     n_caps = np.full(n, -7, np.int32)
     cap_off = np.full((n, max_stars), -7, np.int32)
     cap_len = np.full((n, max_stars), -7, np.int32)
-    lib.rehearse(pb.ctypes.data, pl.ctypes.data, pb.shape[1],
-                 int(pb.shape[0] == 1), sb.ctypes.data, sl.ctypes.data, n, ms,
-                 max_stars, ok.ctypes.data, supported.ctypes.data,
-                 n_caps.ctypes.data, cap_off.ctypes.data, cap_len.ctypes.data)
+    rc = lib.rehearse(pb.ctypes.data, pl.ctypes.data, pb.shape[1],
+                      int(pb.shape[0] == 1), sb.ctypes.data, sl.ctypes.data,
+                      n, ms, max_stars, ok.ctypes.data,
+                      supported.ctypes.data, n_caps.ctypes.data,
+                      cap_off.ctypes.data, cap_len.ctypes.data, sms)
+    assert rc == 0
     assert set(np.unique(ok)) <= {0, 1} and set(np.unique(supported)) <= {0, 1}
     return mk.MatchResult(ok.astype(bool), supported.astype(bool), n_caps,
                           cap_off, cap_len)
@@ -146,13 +220,13 @@ def pack(strings, width=MS, fill=None):
 
 
 def held(lib, pats, subjs, max_stars=STARS, width=MS, fill=None,
-         chunk=CHUNK):
+         chunk=CHUNK, sms=SMS):
     """The rehearsed kernel == the plain version == JAX on every field of
     every row; one pattern string is shared by all rows."""
     shared = isinstance(pats, str)
     pb, pl = pack([pats] if shared else pats, width, fill)
     sb, sl = pack(subjs, width, fill)
-    got = rehearse(lib, pb, pl, sb, sl, max_stars)
+    got = rehearse(lib, pb, pl, sb, sl, max_stars, sms)
     ref = mk.wildcard_match_reference(*map(torch.from_numpy, (pb, pl, sb,
                                                               sl)),
                                       max_stars)
@@ -332,3 +406,210 @@ def test_lengths_past_the_row(rehearsal):
         for name, g, p, j in zip(mk.MatchResult._fields, got, ref, want):
             np.testing.assert_array_equal(g, p.numpy(), err_msg=name)
             np.testing.assert_array_equal(g, j, err_msg=name)
+
+
+# ---- the block design's hazards, one test each -------------------------------------
+
+def at_offset(rows: np.ndarray, offset: int) -> np.ndarray:
+    """The rows as a contiguous view whose base lies ``offset`` bytes into
+    a larger buffer (filled with stars and newlines around it)."""
+    n, ms = rows.shape
+    big = np.frombuffer(b"*\n" * (n * ms + offset + 32), np.uint8).copy()
+    view = big[offset:offset + n * ms].reshape(n, ms)
+    view[:] = rows
+    assert view.flags.c_contiguous
+    return view
+
+
+def held_rows(lib, pb, pl, sb, sl, max_stars=STARS, chunk=CHUNK):
+    """``held`` on rows already packed (any base, any lengths)."""
+    got = rehearse(lib, pb, pl, sb, sl, max_stars)
+    ref = mk.wildcard_match_reference(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (pb, pl, sb,
+                                                              sl)),
+        max_stars)
+    want = jax_match(*(np.ascontiguousarray(a) for a in (pb, pl, sb, sl)),
+                     max_stars, chunk)
+    for name, g, p, j in zip(mk.MatchResult._fields, got, ref, want):
+        np.testing.assert_array_equal(g, p.numpy(), err_msg=f"{name} plain")
+        np.testing.assert_array_equal(g, j, err_msg=f"{name} jax")
+    return got
+
+
+def test_layout_rows_lie_an_odd_number_of_words_apart(rehearsal):
+    """A block's shared memory: subject and pattern rows an odd number of
+    words apart (32 threads reading word j of 32 rows hit 32 banks), at
+    most stage::CAP = 256 bytes of a row staged, the scratch
+    2 * max_stars words a thread after them; at MS 96 eight blocks of
+    per-row patterns (max_stars 2) share an H100 SM's 228 KB, and the
+    largest block (max_stars 64, rows past the stage) stays under 227 KB."""
+    for ms in (0, 4, 24, 96, 130, 256, 600, 8192):
+        for shared in (False, True):
+            lay = layout(rehearsal, ms, ms, shared, STARS)
+            assert lay["rows"] == 128
+            assert lay["s_cap"] == lay["p_cap"] == min(ms, 256)
+            for stride in (lay["s_stride"], lay["p_stride"]):
+                assert stride % 4 == 0 and (stride // 4) % 2 == 1
+                assert stride >= lay["s_cap"]
+            assert lay["pat"] == 128 * lay["s_stride"]
+            assert lay["scratch"] == lay["pat"] + (1 if shared else 128) \
+                * lay["p_stride"]
+            assert lay["bytes"] == lay["scratch"] + 2 * STARS * 128 * 4
+    per_row = layout(rehearsal, MS, MS, False, STARS)["bytes"]
+    assert 8 * (per_row + 1024) <= 228 * 1024
+    assert layout(rehearsal, 8192, 8192, False, 64)["bytes"] <= 227 * 1024
+
+
+def test_rows_a_warp(rehearsal):
+    """32 rows a warp, halved down to 1 while a call gives fewer warps than
+    the card has schedulers (the matcher wants one a scheduler, four an
+    SM)."""
+    got = [rehearsal.rows_a_warp(n, sms) for n, sms in (
+        (131_072, 132), (16_896, 132), (10_000, 132), (8_448, 132),
+        (8_432, 132), (4_096, 132), (1, 132), (4_096, 8), (421, 4),
+        (421, 1))]
+    assert got == [32, 32, 16, 16, 8, 4, 1, 32, 16, 32]
+
+
+@pytest.mark.parametrize("sms", [1, 4, 10, 20, 50, 132])
+def test_each_rows_a_warp(sms, rehearsal):
+    """The same 421 rows at 32, 16, 8, 4, 2 and 1 rows a warp (the cards
+    of 1, 4, 10, 20, 50 and 132 SMs): the idle lanes stage and match
+    nothing."""
+    assert rehearsal.rows_a_warp(421, sms) == {
+        1: 32, 4: 16, 10: 8, 20: 4, 50: 2, 132: 1}[sms]
+    rng = random.Random(10)
+    pats = [random_pattern(rng) for _ in range(421)]
+    subjs = [random_subject(rng) for _ in range(421)]
+    held(rehearsal, pats, subjs, fill=np.random.default_rng(sms), sms=sms)
+    held(rehearsal, pats[0], subjs, fill=np.random.default_rng(sms),
+         sms=sms)
+
+
+def test_partial_last_block(rehearsal):
+    """Rows that end a block short (3 blocks and 37 rows): the last
+    block's threads past the rows stage and match nothing."""
+    rng = random.Random(11)
+    for n in (1, 127, 129, 3 * 128 + 37):
+        pats = [random_pattern(rng) for _ in range(n)]
+        subjs = [random_subject(rng) for _ in range(n)]
+        held(rehearsal, pats, subjs, fill=np.random.default_rng(n))
+        held(rehearsal, pats[0], subjs, fill=np.random.default_rng(n))
+
+
+def test_lengths_past_ms_and_of_zero(rehearsal):
+    """Subject and pattern lengths past MS (the row's bytes and then
+    zeros), of 0 and below, mixed in one block at MS 96."""
+    rng = random.Random(12)
+    n = 300
+    pats = [random_pattern(rng) for _ in range(n)]
+    subjs = [random_subject(rng) for _ in range(n)]
+    pb, pl = pack(pats, fill=np.random.default_rng(1))
+    sb, sl = pack(subjs, fill=np.random.default_rng(2))
+    gen = np.random.default_rng(3)
+    pick = gen.integers(0, 4, (2, n))
+    wide = gen.integers(MS + 1, 3 * MS, (2, n)).astype(np.int32)
+    for lens, k in ((pl, 0), (sl, 1)):
+        lens[pick[k] == 0] = 0
+        lens[pick[k] == 1] = wide[k][pick[k] == 1]
+        lens[pick[k] == 2] = -gen.integers(1, 5, int((pick[k] == 2).sum()))
+    got = held_rows(rehearsal, pb, pl, sb, sl)
+    assert got.ok.any() and not got.ok.all()
+
+
+@pytest.mark.parametrize("lit_len", [1, 2, 3, 4, 5, 7, 8, 9, 31, 32])
+def test_literal_straddling_a_word_boundary_at_every_offset(lit_len,
+                                                            rehearsal):
+    """A literal at every offset 0-3 of a subject word and of a pattern
+    word (the funnel shifts on both sides), matching, one byte off at its
+    first, last and middle byte, and cut short by the row's length."""
+    lit = "".join("ab"[(k * 7 + lit_len) % 3 % 2] for k in range(lit_len))
+    pats, subjs = [], []
+    for po in range(4):          # the literal's offset in the pattern
+        for so in range(4):      # its offset in the subject
+            for bad in (None, 0, lit_len - 1, lit_len // 2):
+                s = list(lit)
+                if bad is not None:
+                    s[bad] = "x"
+                s = "".join(s)
+                pats.append("z" * po + "*" + lit + "*")
+                subjs.append("z" * po + "y" * so + s + "yy")
+                pats.append("*" + "z" * po + lit)
+                subjs.append("w" * (so + 4) + "z" * po + s)
+            pats.append("*" + lit)
+            subjs.append("y" * so + lit[:-1])
+    got = held(rehearsal, pats, subjs, fill=np.random.default_rng(lit_len))
+    assert got.ok.any() and not got.ok.all()
+
+
+def test_shared_pattern_staged_once_while_the_rows_differ(rehearsal):
+    """One shared pattern, staged once a block, against 3 blocks of
+    different subjects (each block's rows ending at other offsets)."""
+    rng = random.Random(13)
+    for pat in ("a*b*", "*ab*ba", "\n*a", "*", "", "ab" * 16 + "*",
+                "*" + "ab" * 16 + "a"):
+        lits = pat.split("*")
+        subjs = ["".join(lit + "".join(rng.choice("ab\n") for _ in range(
+            rng.randint(0, 7))) for lit in lits)[:MS] for _ in range(200)]
+        subjs += [random_subject(rng) for _ in range(190)]
+        got = held(rehearsal, pat, subjs, 3, fill=np.random.default_rng(7))
+        if pat:
+            assert got.ok.any()
+
+
+def test_max_stars_64_at_ms_96(rehearsal):
+    """The scratch at its largest (64 stars, 128 columns of 2 * 64 words)
+    at the main path's width, per row and shared."""
+    rng = random.Random(14)
+    pats = ["*".join(rng.choice(["", "a", "b"]) for _ in range(
+        rng.randint(1, 70))) for _ in range(200)]
+    subjs = ["".join(lit + rng.choice(["", "a"]) for lit in p.split("*"))
+             [:MS] for p in pats]
+    held(rehearsal, pats, subjs, mk.KERNEL_MAX_STARS, chunk=16)
+    held(rehearsal, "*a" * 40, subjs, mk.KERNEL_MAX_STARS, chunk=16)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 16])
+def test_rows_at_unaligned_bases(offset, rehearsal):
+    """Rows whose base is 1, 2, 4 or 16 bytes off a 16-byte boundary, and
+    a pattern width of 24 (4-byte units) or 21 (bytes): every unit size
+    of the staging."""
+    rng = random.Random(15 + offset)
+    n = 260
+    pats = [random_pattern(rng)[:20] for _ in range(n)]
+    subjs = [random_subject(rng) for _ in range(n)]
+    for pw in (24, 21, MS):
+        pb, pl = pack(pats, pw, np.random.default_rng(offset))
+        sb, sl = pack(subjs, fill=np.random.default_rng(offset + 1))
+        held_rows(rehearsal, at_offset(pb, offset), pl,
+                  at_offset(sb, offset), sl)
+        held_rows(rehearsal, at_offset(pb[:1], offset), pl[:1],
+                  at_offset(sb, 3), sl)
+
+
+def test_rows_wider_than_the_stage(rehearsal):
+    """Rows of 600 bytes whose subjects (max_stars 3) and patterns
+    (max_stars 64) run past the 256 staged bytes: their tails are read in
+    place, backward searches and star scans included."""
+    rng = random.Random(16)
+
+    def filled(lits, most):     # filler where the stars are
+        return "".join(lit + ("" if k == len(lits) - 1 else "".join(
+            rng.choice("ab\n") for _ in range(rng.randint(0, most))))
+            for k, lit in enumerate(lits))[:600]
+
+    pats, subjs = [], []
+    for _ in range(200):
+        lits = ["".join(rng.choice("ab") for _ in range(rng.randint(0, 30)))
+                for _ in range(rng.randint(1, 4))]
+        pats.append("*".join(lits))
+        subjs.append(filled(lits, 250))
+    got = held(rehearsal, pats, subjs, 3, width=600, chunk=64,
+               fill=np.random.default_rng(16))
+    assert got.ok.sum() > 20 and max(map(len, subjs)) > 400
+    pats = ["*".join("".join(rng.choice("ab") for _ in range(
+        rng.randint(2, 6))) for _ in range(65)) for _ in range(130)]
+    subjs = [filled(p.split("*"), 3) for p in pats]
+    got = held(rehearsal, pats, subjs, mk.KERNEL_MAX_STARS, width=600,
+               chunk=16, fill=np.random.default_rng(17))
+    assert got.ok.sum() > 20 and min(map(len, pats)) > 256

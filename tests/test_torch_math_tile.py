@@ -1,10 +1,14 @@
 """A rehearsal of the math-evaluator kernel (``csrc/math_eval.cu``) on the CPU.
 
-The kernel's per-row functions (``eval_flat_row``, the flat mode, and
-``eval_enum_row``, min or max over a comma list) compile with g++ under a
-small header that defines the CUDA qualifiers away; the harness runs them
-row by row, as the kernel's threads do. Every row's ``(err, value)``, the
-value of an erroring row included, must equal the plain versions
+The kernel's phases compile with g++ under a small header that defines the
+CUDA qualifiers away and stands in for ``uint4``. The harness runs them
+block by block as the card would between its barrier: ``stage_block`` for
+every thread of a block (its rows within their lengths into shared
+memory), then ``eval_thread`` for every thread (the flat mode, or min or
+max over a comma list). Shared memory starts as garbage (digits, operators
+and commas) before every block, a guard past its end must stay untouched,
+and the outputs start as garbage. Every row's ``(err, value)``, the value
+of an erroring row included, must equal the plain versions
 (``eval_flat_reference``, ``eval_enum_minmax_reference``) and the JAX
 package's ``eval_flat`` and ``_eval_enum_minmax`` (jitted under ``vmap`` on
 the CPU), bit for bit: on the expressions of ``tests/test_math_kernel.py``,
@@ -41,26 +45,68 @@ CSRC = Path(pmk.__file__).resolve().parent.parent / "csrc"
 MS = 96             # the bench's general VMConfig
 CHUNK = 256         # rows per JAX call: one compile per function
 WRAP = 2 ** 32
+SMS = 132           # an H100's SMs: the kernel's rows a warp follow them
 
 HARNESS = r"""
 #include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
 #define __device__
 #define __host__
 #define __forceinline__ inline
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 #include "math_eval.cu"
 
-// The kernel's launch, a row at a time (one thread a row on the card).
-extern "C" void rehearse(const uint8_t* bufs, const int* lengths,
-                         const uint8_t* want_max, int n, int ms, int* err,
-                         int* value) {
-  for (int r = 0; r < n; ++r) {
-    const uint8_t* row = bufs + (long long)r * ms;
-    const MathResult res =
-        want_max ? eval_enum_row(row, ms, lengths[r], want_max[r] != 0)
-                 : eval_flat_row(row, ms, lengths[r]);
-    err[r] = res.err;
-    value[r] = res.value;
+static const char GARBAGE[] = "1+,2*-9/ %07";
+
+// The kernel's launch on a card of `sms` SMs (rows_a_warp picks the rows a
+// warp from the kernel's WARPS_AN_SM, a block 4 * rpw rows), block by block of ROWS threads; in a block
+// each phase runs for every thread before the next one starts, as the
+// kernel's barrier orders them. Shared memory is garbage before each block.
+// 0: done; -1: arguments refused; -2: a block wrote past its shared memory;
+// -3: a thread wrote shared memory outside its own column (word k * ROWS +
+// t of the scratch).
+extern "C" int rehearse(const uint8_t* bufs, const int* lengths,
+                        const uint8_t* want_max, int n, int ms, int* err,
+                        int* value, int sms) {
+  if (n <= 0) return 0;
+  if (ms < 0) return -1;
+  const int rpw = stage::rows_a_warp(n, sms, WARPS_AN_SM);
+  const MathArgs a{bufs, lengths, want_max, n, ms, rpw, err, value};
+  const MathLayout l = math_layout(ms);
+  const int guard = 64, size = l.bytes + guard;
+  uint8_t* sm = (uint8_t*)aligned_alloc(16, (size + 15) / 16 * 16);
+  uint8_t* before = (uint8_t*)malloc(size);
+  const int g = (int)sizeof(GARBAGE) - 1;
+  int rc = 0;
+  for (int b = 0; (long long)b * 4 * rpw < n && rc == 0; ++b) {
+    for (int j = 0; j < size; ++j) sm[j] = GARBAGE[(j + b) % g];
+    for (int t = 0; t < ROWS; ++t) stage_block(a, l, b, t, ROWS, sm);
+    memcpy(before, sm, size);
+    for (int t = 0; t < ROWS && rc == 0; ++t) {
+      eval_thread(a, l, b, t, sm);
+      for (int j = 0; j < size; ++j)
+        if (sm[j] != before[j] &&
+            (j < l.nums || (j - l.nums) / 4 % ROWS != t))
+          rc = -3;
+      memcpy(before, sm, size);
+    }
+    for (int j = l.bytes; j < size; ++j)
+      if (sm[j] != (uint8_t)GARBAGE[(j + b) % g]) rc = -2;
   }
+  free(sm);
+  free(before);
+  return rc;
+}
+
+extern "C" int rows_a_warp(long long n, int sms) {
+  return stage::rows_a_warp(n, sms, WARPS_AN_SM);
+}
+
+extern "C" void layout(int ms, int* out5) {
+  const MathLayout l = math_layout(ms);
+  const int v[5] = {l.cap, l.stride, l.nums, l.bytes, ROWS};
+  for (int k = 0; k < 5; ++k) out5[k] = v[k];
 }
 """
 
@@ -73,18 +119,31 @@ def rehearsal(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("math_rehearsal")
     (tmp / "harness.cpp").write_text(HARNESS)
     so = tmp / "librehearsal.so"
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wall",
-                    "-Werror", "-I", str(CSRC), "-o", str(so),
+    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                    "-fno-strict-aliasing", "-Wall", "-Werror",
+                    "-Wno-unknown-pragmas", "-Wno-maybe-uninitialized",
+                    "-I", str(CSRC), "-o", str(so),
                     str(tmp / "harness.cpp")], check=True,
                    capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rehearse.argtypes = [p, p, p, i, i, p, p]
-    lib.rehearse.restype = None
+    lib.rehearse.argtypes = [p, p, p, i, i, p, p, i]
+    lib.rehearse.restype = i
+    lib.rows_a_warp.argtypes = [ctypes.c_longlong, i]
+    lib.rows_a_warp.restype = i
+    lib.layout.argtypes = [i, ctypes.POINTER(i)]
+    lib.layout.restype = None
     return lib
 
 
-def rehearse(lib, bufs, lens, want_max=None):
+def layout(lib, ms) -> dict:
+    """The kernel's shared memory for a block (``math_layout``)."""
+    out = (ctypes.c_int * 5)()
+    lib.layout(ms, out)
+    return dict(zip(("cap", "stride", "nums", "bytes", "rows"), out))
+
+
+def rehearse(lib, bufs, lens, want_max=None, sms=SMS):
     """(err, value) of the rehearsed kernel; outputs start as garbage."""
     n, ms = bufs.shape
     bufs = np.ascontiguousarray(bufs, np.uint8)
@@ -93,9 +152,10 @@ def rehearse(lib, bufs, lens, want_max=None):
     value = np.full(n, -7, np.int32)
     wm = None if want_max is None else np.ascontiguousarray(want_max,
                                                             np.uint8)
-    lib.rehearse(bufs.ctypes.data, lens.ctypes.data,
-                 None if wm is None else wm.ctypes.data, n, ms,
-                 err.ctypes.data, value.ctypes.data)
+    rc = lib.rehearse(bufs.ctypes.data, lens.ctypes.data,
+                      None if wm is None else wm.ctypes.data, n, ms,
+                      err.ctypes.data, value.ctypes.data, sms)
+    assert rc == 0
     return err, value
 
 
@@ -135,10 +195,10 @@ def encode(exprs, ms=MS, junk=None):
     return bufs, lens
 
 
-def held(lib, jax_fns, bufs, lens, want_max=None):
+def held(lib, jax_fns, bufs, lens, want_max=None, sms=SMS):
     """The rehearsed kernel == the plain version == JAX, row for row;
     returns (err, value)."""
-    got = rehearse(lib, bufs, lens, want_max)
+    got = rehearse(lib, bufs, lens, want_max, sms)
     tb, tl = torch.from_numpy(bufs), torch.from_numpy(lens)
     if want_max is None:
         ref = pmk.eval_flat_reference(tb, tl)
@@ -336,6 +396,163 @@ def test_enumeration_min_and_max_with_an_erring_segment(rehearsal,
                             ik.ERR_ASSERT, ik.ERR_ASSERT, ik.ERR_OK,
                             ik.ERR_ASSERT]
     assert value[:2].tolist() == [1, 3] and value[8] == -9
+
+
+# ---- the block design's hazards, one test each -------------------------------------
+
+def at_offset(rows: np.ndarray, offset: int) -> np.ndarray:
+    """The rows as a contiguous view whose base lies ``offset`` bytes into
+    a larger buffer (filled with digits and commas around it)."""
+    n, ms = rows.shape
+    big = np.frombuffer(b"9," * (n * ms + offset + 32), np.uint8).copy()
+    view = big[offset:offset + n * ms].reshape(n, ms)
+    view[:] = rows
+    assert view.flags.c_contiguous
+    return view
+
+
+def both_modes(lib, jax_fns, bufs, lens, sms=SMS):
+    """``held`` in the flat mode and in the enumeration mode (min and max
+    alternating)."""
+    held(lib, jax_fns, bufs, lens, sms=sms)
+    held(lib, jax_fns, bufs, lens, np.arange(bufs.shape[0]) % 2 == 0, sms)
+
+
+def test_layout_rows_lie_an_odd_number_of_words_apart(rehearsal):
+    """A block's shared memory: rows an odd number of words apart (32
+    threads reading word j of 32 rows hit 32 banks), at most stage::CAP =
+    256 bytes of a row staged, then the operand stacks (16 words a thread,
+    entry k of thread t at word k * 128 + t); at MS 96 ten blocks share an
+    H100 SM's 228 KB, and no block needs the opt-in past 48 KB."""
+    for ms in (0, 1, 7, 24, 96, 130, 256, 600, 8192):
+        lay = layout(rehearsal, ms)
+        assert lay["rows"] == 128 and lay["cap"] == min(ms, 256)
+        assert lay["stride"] % 4 == 0 and (lay["stride"] // 4) % 2 == 1
+        assert lay["stride"] >= lay["cap"]
+        assert lay["nums"] == 128 * lay["stride"]
+        assert lay["bytes"] == lay["nums"] + 16 * 128 * 4 <= 48 * 1024
+    assert 10 * (layout(rehearsal, MS)["bytes"] + 1024) <= 228 * 1024
+
+
+def test_rows_a_warp(rehearsal):
+    """32 rows a warp, halved down to 1 while a call gives fewer than four
+    warps a scheduler (sixteen an SM), to overlap the walks' chains."""
+    got = [rehearsal.rows_a_warp(n, 132) for n in (
+        131_072, 67_584, 67_552, 16_384, 4_096, 1)]
+    assert got == [32, 32, 16, 4, 1, 1]
+
+
+@pytest.mark.parametrize("sms", [1, 2, 4, 8, 16, 132])
+def test_each_rows_a_warp(sms, rehearsal, jax_fns):
+    """The same 600 rows at 32, 16, 8, 4, 2 and 1 rows a warp (the cards
+    of 1, 2, 4, 8, 16 and 132 SMs): the idle lanes stage and evaluate
+    nothing."""
+    assert rehearsal.rows_a_warp(600, sms) == {
+        1: 32, 2: 16, 4: 8, 8: 4, 16: 2, 132: 1}[sms]
+    rng = random.Random(10)
+    exprs = [",".join(flat_expr(rng) for _ in range(rng.randint(1, 3)))
+             for _ in range(600)]
+    both_modes(rehearsal, jax_fns,
+               *encode(exprs, junk=np.random.default_rng(sms)), sms)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 3 * 128 + 37])
+def test_partial_last_block(n, rehearsal, jax_fns):
+    """Rows that end a block short: the last block's threads past the
+    rows stage and evaluate nothing."""
+    rng = random.Random(n)
+    exprs = [",".join(flat_expr(rng) for _ in range(rng.randint(1, 3)))
+             for _ in range(n)]
+    both_modes(rehearsal, jax_fns, *encode(exprs,
+                                           junk=np.random.default_rng(n)))
+
+
+def test_lengths_past_ms_and_of_zero(rehearsal, jax_fns):
+    """Lengths of 0, below 0 and past MS (reads clamp to byte MS - 1 in
+    the flat mode and in an enumeration's first segment, zero in a later
+    one), mixed in the blocks at MS 96."""
+    rng = random.Random(21)
+    n = 400
+    exprs = [",".join(flat_expr(rng) for _ in range(rng.randint(1, 3)))
+             for _ in range(n)]
+    bufs, lens = encode(exprs, junk=np.random.default_rng(21))
+    gen = np.random.default_rng(22)
+    pick = gen.integers(0, 4, n)
+    lens[pick == 0] = 0
+    lens[pick == 1] = gen.integers(MS + 1, 4 * MS, int((pick == 1).sum()))
+    lens[pick == 2] = -gen.integers(1, 5, int((pick == 2).sum()))
+    both_modes(rehearsal, jax_fns, bufs, lens)
+    # rows of digits to the end, so that the clamped byte is a digit
+    digits = ["1" * MS, "12+" * 32, "3," * 48, "7" * 95 + ",", "8" * 40]
+    bufs, _ = encode(digits)
+    lens = np.asarray([MS + 5, MS + 1, 200, 150, 0], np.int32)
+    both_modes(rehearsal, jax_fns, bufs, lens)
+
+
+def test_int_min_floor_division_and_modulo_by_minus_one(rehearsal,
+                                                        jax_fns):
+    """INT_MIN // -1 and INT_MIN / -1 wrap to INT_MIN, INT_MIN % -1 is 0,
+    as the 64-bit path computes them (a 32-bit division would trap)."""
+    exprs = ["-2147483648 // -1", "2147483648 // -1", "-2147483648 % -1",
+             "2147483648 % -1", "-2147483648 / -1", "2147483648 / -1",
+             "2147483648 // 4294967295", "2147483648 % 4294967295",
+             "7 // -1", "-7 % -1", "0 // -1", "2147483648 // 1",
+             "2147483648 // -2", "2147483648 % 3", "2147483648 // 3"]
+    err, value = flat(rehearsal, jax_fns, exprs)
+    assert (err == ik.ERR_OK).all()
+    lo = -2 ** 31
+    assert value[:8].tolist() == [lo, lo, 0, 0, lo, lo, lo, 0]
+    assert value[8:].tolist() == [-7, 0, 0, lo, 2 ** 30, lo % 3, lo // 3]
+
+
+BASES = ["0", "1", "2", "3", "7", "10", "46341", "65535", "2147483647",
+         "2147483648", "4294967295", "4294967294", "4294967293"]
+
+
+def test_power_by_squaring_equals_the_loop_at_exponents_0_to_40(
+        rehearsal, jax_fns):
+    """'**' by squaring equals the repeated wrapped product, the exponent
+    clipped to 31, for exponents 0-40 and bases near 0 and near the wrap
+    (the last three are -1, -2 and -3 once wrapped)."""
+    exprs = [f"{b} ** {e}" for b in BASES for e in range(41)]
+    err, value = flat(rehearsal, jax_fns, exprs)
+    assert (err == ik.ERR_OK).all()
+    want = []
+    for b in BASES:
+        for e in range(41):
+            acc = 1
+            for _ in range(min(e, 31)):
+                acc = wrap32(acc * wrap32(int(b)))
+            want.append(acc)
+    assert value.tolist() == want
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 16])
+def test_rows_at_unaligned_bases(offset, rehearsal, jax_fns):
+    """Rows whose base is 1, 2, 4 or 16 bytes off a 16-byte boundary, at
+    widths 96, 24 (4-byte units) and 21 (bytes): every unit size of the
+    staging."""
+    rng = random.Random(30 + offset)
+    for ms in (MS, 24, 21):
+        exprs = [",".join(flat_expr(rng) for _ in range(rng.randint(1, 3)))
+                 for _ in range(260)]
+        bufs, lens = encode(exprs, ms, np.random.default_rng(offset))
+        both_modes(rehearsal, jax_fns, at_offset(bufs, offset), lens)
+
+
+def test_rows_wider_than_the_stage(rehearsal, jax_fns):
+    """Rows of 600 bytes whose expressions and comma lists run past the
+    256 staged bytes (their tails read in place), and lengths past 600."""
+    rng = random.Random(40)
+    exprs = []
+    for k in range(300):
+        parts = [flat_expr(rng) for _ in range(rng.randint(20, 60))]
+        sep = "," if k % 2 else rng.choice([" + ", " - ", "*"])
+        exprs.append(sep.join(parts))
+    bufs, lens = encode(exprs, 600, np.random.default_rng(40))
+    assert (lens > 300).sum() > 100
+    lens[::7] += 50
+    both_modes(rehearsal, jax_fns, bufs, lens)
 
 
 # ---- the whole evaluator with the rehearsal in place of the kernel ----------------
