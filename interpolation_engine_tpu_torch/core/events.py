@@ -16,7 +16,9 @@ execution trace SURVEY.md §5 describes, extended with timing.
 from __future__ import annotations
 
 import json
+import threading
 import time
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from datetime import datetime, timezone
 from typing import Any, Optional, TextIO
@@ -93,7 +95,74 @@ def format_pretty(event: Event) -> str:
     return head + loc + body
 
 
-class EventLogger:
+def now_us() -> float:
+    """Microseconds on the clock ``torch.profiler`` stamps its events with
+    (``time.time_ns``), so a span lines up with a device trace."""
+    return time.time_ns() / 1e3
+
+
+# the span handed out while nothing records: reads no clock
+_NO_SPAN = nullcontext()
+
+
+class _Span:
+    __slots__ = ("spans", "name", "start")
+
+    def __init__(self, spans: list, name: str):
+        self.spans, self.name = spans, name
+
+    def __enter__(self):
+        self.start = now_us()
+        return self
+
+    def __exit__(self, *exc):
+        self.spans.append((self.name, threading.get_ident(), self.start,
+                           now_us()))
+        return False
+
+
+@dataclass
+class Recording:
+    """What ``recording()`` collected: ``spans`` as ``(name, thread id,
+    start_us, end_us)`` in the order they ended, and ``counters``."""
+    spans: list = field(default_factory=list)
+    counters: dict = field(default_factory=dict)
+
+
+class Recorder:
+    """Spans and counters taken inside the engines' steps, on ``now_us``'s
+    clock. Outside ``recording()`` a site costs one attribute test:
+    ``span`` hands back one shared no-op, ``count`` returns at once."""
+
+    recorded: Optional[Recording] = None
+
+    def span(self, name: str):
+        """A context manager that records ``name`` around its block."""
+        rec = self.recorded
+        if rec is None:
+            return _NO_SPAN
+        return _Span(rec.spans, name)
+
+    def count(self, name: str, k: int = 1) -> None:
+        rec = self.recorded
+        if rec is None:
+            return
+        rec.counters[name] = rec.counters.get(name, 0) + k
+
+    @contextmanager
+    def recording(self):
+        """Record spans and counters inside the block; yields the
+        ``Recording`` they go into."""
+        if self.recorded is not None:
+            raise RuntimeError("already recording")
+        rec = self.recorded = Recording()
+        try:
+            yield rec
+        finally:
+            self.recorded = None
+
+
+class EventLogger(Recorder):
     """Renders events to the log sink; optionally mirrors JSON lines."""
 
     def __init__(self, sink: Optional[TextIO] = None,

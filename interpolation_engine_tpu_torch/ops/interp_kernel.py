@@ -19,6 +19,7 @@ import torch
 
 from ..vm import bytestr as bs
 from ..vm.state import T_INT, T_LIST, T_STR, find_slot, gather_slot
+from ..vm.syncs import host_sync
 from . import brace_scan as scan_mod
 
 ERR_OK = 0
@@ -68,7 +69,8 @@ def _const_eq(key_buf, key_len, s: str) -> torch.Tensor:
         return torch.zeros(key_buf.shape[0], dtype=torch.bool,
                            device=key_buf.device)
     target = torch.zeros(n, dtype=torch.uint8, device=key_buf.device)
-    target[:len(data)] = torch.tensor(list(data), dtype=torch.uint8)
+    target[:len(data)] = host_sync(torch.tensor, list(data),
+                                   dtype=torch.uint8, device=target.device)
     return bs.equal(key_buf, key_len, target, len(data))
 
 
@@ -131,13 +133,12 @@ def general_interpolate(st, buf, length, cfg):
             break
         b, ln = buf.index_select(0, live), length.index_select(0, live)
         n_open, n_close, outer, inner = scan_mod.brace_scan(b, ln).unbind(1)
-        more = n_open > 0
+        sel = host_sync(torch.nonzero, n_open > 0)[:, 0]
+        rows_i = live.index_select(0, sel)
         if it == cfg.max_subst:
             # the iteration cap with braces left: defer to the host
-            err.index_fill_(0, live[more], ERR_HOST)
+            err.index_fill_(0, rows_i, ERR_HOST)
             break
-        sel = more.nonzero()[:, 0]
-        rows_i = live.index_select(0, sel)
         if rows_i.numel() == 0:
             break
         b, ln = b.index_select(0, sel), ln.index_select(0, sel)
@@ -168,7 +169,8 @@ def general_interpolate(st, buf, length, cfg):
         length.index_copy_(0, rows_i, _where(apply, new_len, ln))
         # a live row's err is still OK: a row leaves at its first error
         err.index_copy_(0, rows_i, step_err.to(torch.int32))
-        live = rows_i[apply]
+        live = rows_i.index_select(0, host_sync(torch.nonzero,
+                                                apply)[:, 0])
     return buf, length, err
 
 

@@ -45,6 +45,7 @@ import torch
 
 from ..vm import bytestr as bs
 from ..vm.state import T_INT, T_LIST
+from ..vm.syncs import host_sync
 from .interp_kernel import ERR_ASSERT, ERR_CAPACITY, ERR_HOST, ERR_OK, lookup
 
 LPAREN, RPAREN, COMMA, DOT = 40, 41, 44, 46
@@ -76,7 +77,8 @@ def _is_digit(b: torch.Tensor) -> torch.Tensor:
 
 
 def _is_any(b: torch.Tensor, codes) -> torch.Tensor:
-    return torch.isin(b, torch.tensor(codes, dtype=b.dtype, device=b.device))
+    return torch.isin(b, host_sync(torch.tensor, codes, dtype=b.dtype,
+                                   device=b.device))
 
 
 def _at(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -406,7 +408,7 @@ def _has_only_enum_chars(buf, length) -> torch.Tensor:
 def on_rows(rows: torch.Tensor, fn, *args):
     """fn on the rows where ``rows`` holds, scattered back into zeros (the
     rows outside are never read)."""
-    idx = rows.nonzero()[:, 0]
+    idx = host_sync(torch.nonzero, rows)[:, 0]
     n = rows.shape[0]
     dev = rows.device
     out = EvalResult(torch.zeros(n, dtype=torch.int32, device=dev),
@@ -498,7 +500,7 @@ def eval_math_bytes(st, buf, length, cfg) -> EvalResult:
     for _ in range(MAX_PARENS):
         has_paren = bs.find(buf, length, LPAREN, 0) != -1
         go = (err == ERR_OK) & has_paren & (iters < MAX_PARENS)
-        idx = go.nonzero()[:, 0]
+        idx = host_sync(torch.nonzero, go)[:, 0]
         if idx.numel() == 0:
             break
         new_buf, new_len, step_err, proceed = _paren_step(

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .syncs import host_sync
+
 BRACE_OPEN = 123   # ord('{')
 BRACE_CLOSE = 125  # ord('}')
 BACKSLASH = 92     # ord('\\')
@@ -229,7 +231,7 @@ def int_to_bytes(value, out_size: int):
     v = value.to(torch.int64)
     neg = v < 0
     mag = v.abs()   # int64: INT32_MIN has a magnitude
-    pw = torch.tensor(_POW10_DESC, dtype=torch.int64, device=dev)
+    pw = host_sync(torch.tensor, _POW10_DESC, dtype=torch.int64, device=dev)
     digits = (mag[:, None] // pw[None, :]) % 10                  # (N, 11)
     nz = digits != 0
     leading = torch.where(nz, torch.arange(11, device=dev)[None, :],
@@ -251,7 +253,7 @@ def _pow10_mod32(n: int, device) -> torch.Tensor:
     for _ in range(n):
         out.append(p)
         p = (p * 10) & M32
-    return torch.tensor(out, dtype=torch.int64, device=device)
+    return host_sync(torch.tensor, out, dtype=torch.int64, device=device)
 
 
 def bytes_to_int(buf, length):

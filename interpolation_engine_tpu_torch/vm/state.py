@@ -8,8 +8,9 @@ holding the uint32 value, and every hash is computed in int64 and masked to
 32 bits. The host codecs build and read one row as a dict of numpy arrays
 with the JAX package's dtypes.
 
-This module imports nothing of the host layers (torch and numpy only): the
-port's compiler imports its ``fnv1a_np`` (``compiler/lower.py``).
+This module imports nothing of the host layers (torch and numpy only) but
+the recorder under ``vm/syncs.py``: the port's compiler imports its
+``fnv1a_np`` (``compiler/lower.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from . import bytestr as bs
+from .syncs import host_sync
 
 # value types
 T_EMPTY = 0
@@ -143,7 +145,8 @@ def fnv1a(buf: torch.Tensor, length) -> torch.Tensor:
     bytes, as int64. Matches ``fnv1a_np``."""
     n = buf.shape[1]
     dev = buf.device
-    powers = torch.from_numpy(_hash_powers(n).astype(np.int64)).to(dev)
+    powers = host_sync(torch.Tensor.to, torch.from_numpy(
+        _hash_powers(n).astype(np.int64)), dev)
     length = bs.col(length, buf.shape[0], dev)
     terms = (buf.to(torch.int64) + 1) * powers[None, :]
     live = bs.positions(n, dev)[None, :] < length[:, None]
@@ -177,7 +180,8 @@ def masked_slot_update(arr: torch.Tensor, slot, value) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         value = value.to(arr.dtype)[:, None]
     else:
-        value = torch.tensor(value, dtype=arr.dtype, device=arr.device)
+        value = host_sync(torch.tensor, value, dtype=arr.dtype,
+                          device=arr.device)
     return torch.where(hit, value, arr)
 
 

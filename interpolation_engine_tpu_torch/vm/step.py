@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .._shared import isa, vm_config
+from ..core.events import EVENTS
 from ..ops import interp_kernel as ik
 from ..ops import match_kernel as mk
 from ..ops import math_kernel as mak
@@ -38,6 +39,7 @@ from ..ops.interp_kernel import (ERR_ASSERT, ERR_CAPACITY, ERR_HOST,
 from . import bytestr as bs
 from .state import (T_INT, T_LIST, T_STR, VMBatch, arena_write, find_slot,
                     fnv1a, gather_slot, masked_slot_update, store_set)
+from .syncs import host_sync
 
 RUNNING, DONE, PARKED = vm_config.RUNNING, vm_config.DONE, vm_config.PARKED
 T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = (
@@ -154,6 +156,9 @@ class GeneralStep:
         # the lane yield only exists in programs that can enter a
         # parallel block (the JAX jit step's specialisation)
         self.has_threads = isa.OP_PAR_BEGIN in ops
+        # the recorder's span of each handler, by opcode
+        self.op_spans = {op: f"general.op.{name}"
+                         for op, name in isa.OP_NAMES.items()}
         self.handlers = {
             isa.OP_HALT: self.h_halt, isa.OP_NOP: self.h_nop,
             isa.OP_SLEEP: self.h_nop, isa.OP_GOTO: self.h_goto,
@@ -206,8 +211,8 @@ class GeneralStep:
         row = self._tmpl_cache.get(key)
         if row is None:
             buf, _ = self._tmpl_np(off, ln)
-            row = self._tmpl_cache[key] = torch.from_numpy(buf).to(
-                self.device)[None, :]
+            row = self._tmpl_cache[key] = host_sync(
+                torch.Tensor.to, torch.from_numpy(buf), self.device)[None, :]
         return row.expand(n, -1), bs.col(ln, n, self.device)
 
     def _is_null(self, off: int, ln: int) -> bool:
@@ -769,7 +774,7 @@ class GeneralStep:
         is_str = val.vtype == T_STR
         value = val.vint
         str_err = torch.zeros_like(val.err)
-        rows = (is_str & (val.err == ERR_OK)).nonzero()[:, 0]
+        rows = host_sync(torch.nonzero, is_str & (val.err == ERR_OK))[:, 0]
         if rows.numel():
             sub = st.take(rows)
             second = ik.interpolate(sub, val.buf.index_select(0, rows),
@@ -812,7 +817,7 @@ class GeneralStep:
         the rows (the iterations past it are masked off in every row)."""
         if count.numel() == 0:
             return 0
-        return min(self.cfg.max_list, max(0, int(count.max())))
+        return min(self.cfg.max_list, max(0, host_sync(int, count.max())))
 
     def h_list_join(self, st, a, b, c):
         """before + the string elements joined by between + after; an int
@@ -976,7 +981,7 @@ class GeneralStep:
             # the value only matters where the entry matched
             vbuf, vlen = self.zeros(n), self.i32(0, n)
             v_missing, v_hard = torch.zeros_like(hit), self.i32(ERR_OK, n)
-            rows = hit.nonzero()[:, 0]
+            rows = host_sync(torch.nonzero, hit)[:, 0]
             if rows.numel():
                 sub_m = mk.MatchResult(*(t.index_select(0, rows) for t in m))
                 caps = self._stage_captures(st.take(rows),
@@ -1024,7 +1029,7 @@ class GeneralStep:
         done = missing | (hard != ERR_OK)
         iters = self.i32(0, n)
         for _ in range(cfg.max_fix):
-            rows = (~done).nonzero()[:, 0]
+            rows = host_sync(torch.nonzero, ~done)[:, 0]
             if rows.numel() == 0:
                 break
             whole = rows.numel() == n
@@ -1081,9 +1086,10 @@ class GeneralStep:
         stale = None     # rows deleted from since the wildcards' results
         for s in range(cfg.n_slots):
             occ = st_c.occ[:, s]
-            if not bool(occ.any()):
+            if not host_sync(bool, occ.any()):
                 continue
-            rows = None if stale is None else stale.nonzero()[:, 0]
+            rows = (None if stale is None
+                    else host_sync(torch.nonzero, stale)[:, 0])
             for w in range(n_wc):
                 if stale is None:
                     wilds[w] = self._wildcard(st_c, a + 2 * w)
@@ -1212,9 +1218,9 @@ class GeneralStep:
         li = torch.arange(self.cfg.max_loops, device=self.device)[None, :]
         counters = torch.where((li >= loop_lo) & (li < loop_hi), 0,
                                st.counters).to(torch.int32)
-        row = lambda v: torch.tensor(v, dtype=torch.int32,  # noqa: E731
-                                     device=self.device)[None, :].expand(
-                                         n, -1).contiguous()
+        row = lambda v: host_sync(  # noqa: E731
+            torch.tensor, v, dtype=torch.int32,
+            device=self.device)[None, :].expand(n, -1).contiguous()
         zeros = torch.zeros((n, nt), dtype=torch.int32, device=self.device)
         return st._replace(
             tpc=row(tpc), tstate=row(tstate), tpark_kind=zeros,
@@ -1279,30 +1285,43 @@ class GeneralStep:
     def _run_group(self, st: VMBatch, pc: int) -> VMBatch:
         op, a, b, c = (int(v) for v in self.code[pc])
         op = min(max(op, 0), isa.N_OPS - 1)
-        new = self.handlers[op](st, a, b, c)
-        return self.thread_yield(new) if self.has_threads else new
+        with EVENTS.span(self.op_spans[op]):
+            new = self.handlers[op](st, a, b, c)
+            return self.thread_yield(new) if self.has_threads else new
 
     def step(self, batch: VMBatch) -> VMBatch:
-        """One instruction on every RUNNING row, grouped by pc."""
+        """One instruction on every RUNNING row, grouped by pc; recorded
+        as a ``general.step`` span, its groups as ``general.gather``, a
+        ``general.op.<opcode>`` span a handler and ``general.scatter``."""
+        with EVENTS.span("general.step"):
+            return self._step(batch)
+
+    def _step(self, batch: VMBatch) -> VMBatch:
         n_code = self.code.shape[0]
         running = batch.status == RUNNING
         key = torch.where(running, batch.pc.clamp(0, n_code - 1), -1)
-        uniq, counts = torch.unique(key, return_counts=True)
-        pairs = torch.stack([uniq.to(torch.int64), counts]).tolist()
+        uniq, counts = host_sync(torch.unique, key, return_counts=True)
+        pairs = host_sync(torch.Tensor.tolist,
+                          torch.stack([uniq.to(torch.int64), counts]))
         groups = [(p, k) for p, k in zip(*pairs) if p >= 0]
+        EVENTS.count("general.groups", len(groups))
         if not groups:
             return batch
         if len(groups) == 1 and groups[0][1] == batch.n:
             return self._run_group(batch, groups[0][0])
-        order = torch.sort(key, stable=True).indices
-        out = [t.clone() for t in batch]
+        with EVENTS.span("general.gather"):
+            order = torch.sort(key, stable=True).indices
+            out = [t.clone() for t in batch]
         start = batch.n - sum(k for _, k in groups)   # non-running first
         for pc, k in groups:
             idx = order[start:start + k]
             start += k
-            new = self._run_group(batch.take(idx), pc)
-            for o, t in zip(out, new):
-                o.index_copy_(0, idx, t)
+            with EVENTS.span("general.gather"):
+                sub = batch.take(idx)
+            new = self._run_group(sub, pc)
+            with EVENTS.span("general.scatter"):
+                for o, t in zip(out, new):
+                    o.index_copy_(0, idx, t)
         return VMBatch(*out)
 
     def run(self, batch: VMBatch, n_steps: int) -> VMBatch:

@@ -61,7 +61,6 @@ from __future__ import annotations
 
 import asyncio
 import os
-import time
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -772,7 +771,12 @@ class TurboEngine:
         rollout resumes thousands of instances from a handful of states):
         the U distinct rows are encoded and uploaded once, then expanded on
         the device by an index gather; a duplicate with a long output gets
-        its own spill. Under a mesh, a ``ShardedTurboBatch``."""
+        its own spill. Under a mesh, a ``ShardedTurboBatch``. Recorded as
+        a ``turbo.load_batch`` span."""
+        with events.EVENTS.span("turbo.load_batch"):
+            return self._load_batch(states)
+
+    def _load_batch(self, states: list):
         self._reset_run_state()
         uniq: list = []
         seen: dict = {}
@@ -808,10 +812,15 @@ class TurboEngine:
     def step_fn(self, n: int):
         """``step(batch) -> batch``: k_steps VM steps on every RUNNING lane
         of an n-row batch, updating its tensors in place (the TPU's
-        ``input_output_aliases``); under a mesh, on every shard."""
+        ``input_output_aliases``); under a mesh, on every shard. Each call
+        is recorded as a ``turbo.launch`` span."""
         tables, k, tile = self.tables, self.tcfg.k_steps, self.tcfg.tile
 
         def step(batch):
+            with events.EVENTS.span("turbo.launch"):
+                return launch(batch)
+
+        def launch(batch):
             if _n_rows(batch) != n:
                 raise ValueError(f"step built for {n} rows, got "
                                  f"{_n_rows(batch)}")
@@ -1770,7 +1779,7 @@ class TurboEngine:
                                engine="turbo",
                                running=int((status == RUNNING).sum()),
                                parked=len(parked))
-            t_ring = time.perf_counter()
+            t_ring = events.now_us()
             n_queued = len(self._promote_states) + len(self._escape_states)
             groups, cancels, slow = self._classify_parked(batch, parked,
                                                           meta)
@@ -1805,7 +1814,7 @@ class TurboEngine:
             rs["parks"] += resumed
             rs["escapes"] += (len(self._promote_states)
                               + len(self._escape_states) - n_queued)
-            rs["ring_ms"] += (time.perf_counter() - t_ring) * 1e3
+            rs["ring_ms"] += (events.now_us() - t_ring) / 1e3
             if self._promote_states and self.promote_factor:
                 # the promoted instances resume in their sibling now, not
                 # at the end of the run (an interactive program may never

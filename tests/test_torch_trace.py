@@ -1,0 +1,268 @@
+"""The port's span and counter recorder (``core/events.py``'s ``EVENTS.span``,
+``count`` and ``recording``) on the general step and the turbo engine's
+``load_batch`` and launch, on the CPU: off it records nothing and changes
+nothing; on, its spans nest as the step does, its counters count what the
+step did, and its clock is ``time.time_ns``'s."""
+
+import ast
+import pathlib
+import threading
+import time
+
+import pytest
+import torch
+
+from interpolation_engine_tpu_torch._shared import (compile_program, json5,
+                                                     loader, validator,
+                                                     vm_config)
+from interpolation_engine_tpu_torch.core import events
+from interpolation_engine_tpu_torch.core.events import EVENTS
+from interpolation_engine_tpu_torch.vm import state as vs
+from interpolation_engine_tpu_torch.vm import syncs
+from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
+from interpolation_engine_tpu_torch.vm.turbo import TurboConfig, TurboEngine
+
+# a loop of ten instructions: rows resumed at different tasks sit at
+# different pcs, so a step runs several groups, and the handlers reach the
+# syncs of set, list_slice's bounds, print and delete
+PROGRAM = """
+{
+    default_state: {order_index: 1, inserts:
+        {n: 0, s: 'a', hist: ['x'], key: 'k1'}},
+    order: [
+        {cmd:'label', name:'@top'},
+        {cmd:'math', input:'{n} + 1', output_name:'n'},
+        {cmd:'set', item:'v-{n}-{s}', output_name:'s'},
+        {cmd:'list_append', list:'{hist}', item:'h{n}', output_name:'hist'},
+        {cmd:'list_slice', list:'{hist}', from_index:1, to_index:4,
+         output_name:'hist'},
+        {cmd:'math', input:'length(hist)', output_name:'m'},
+        {cmd:'print', text:'{s};'},
+        {cmd:'set', item:'{n}', output_name:'tmp'},
+        {cmd:'delete', wildcards:['tm*']},
+        {cmd:'goto_map', text:'{key}', target_maps:[{'k*': '@top'}]},
+    ],
+    named_tasks: {}, save_states: {},
+}
+"""
+CFG = vm_config.VMConfig(max_str=96, max_key=24, n_slots=12, arena_size=1024,
+                         pool_size=32, out_size=192, max_subst=6, max_stars=2,
+                         max_list=16, max_fix=4)
+STATE = {"inserts": {"n": 0, "s": "a", "hist": ["x"], "key": "k1"},
+         "output": ""}
+TASKS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 1, 3, 5]   # the task each row resumes at
+STEPS = 12
+GENERAL = ("general.op.", "general.gather", "general.scatter",
+           "general.sync")
+
+
+def compiled():
+    program = json5.loads(loader.add_line_numbers(PROGRAM))
+    validator.validate_program(program)
+    return compile_program(program)
+
+
+@pytest.fixture(scope="module")
+def runner():
+    return DeviceRunner(compiled(), CFG, device="cpu")
+
+
+def start(runner) -> vs.VMBatch:
+    return vs.stack_rows([runner.load_state(dict(STATE, order_index=t))
+                          for t in TASKS])
+
+
+@pytest.fixture(scope="module")
+def recorded(runner):
+    """Each step's recording and the distinct pcs of its RUNNING rows,
+    read apart from the step."""
+    batch, steps = start(runner), []
+    for _ in range(STEPS):
+        running = batch.status == vm_config.RUNNING
+        pcs = set(batch.pc[running].tolist())
+        with EVENTS.recording() as rec:
+            batch = runner.step.step(batch)
+        steps.append((rec, pcs))
+    return steps
+
+
+def test_off_records_nothing_and_on_changes_nothing(runner):
+    assert EVENTS.recorded is None
+    assert EVENTS.span("general.step") is EVENTS.span("turbo.launch")
+    EVENTS.count("general.groups", 3)
+    assert EVENTS.recorded is None
+    off = runner.launch(start(runner), STEPS)
+    with EVENTS.recording() as rec:
+        on = runner.launch(start(runner), STEPS)
+    assert EVENTS.recorded is None
+    assert rec.spans and rec.counters
+    assert len(set(off.pc.tolist())) > 1
+    for name in vs.FIELDS:
+        assert torch.equal(getattr(off, name), getattr(on, name)), name
+
+
+def test_groups_are_the_distinct_running_pcs(recorded):
+    assert any(len(pcs) > 1 for _, pcs in recorded)
+    for rec, pcs in recorded:
+        assert rec.counters["general.groups"] == len(pcs)
+
+
+@pytest.mark.parametrize("kind", GENERAL)
+def test_spans_nest_in_a_step_of_their_thread(recorded, kind):
+    seen = 0
+    for rec, _ in recorded:
+        steps = [s for s in rec.spans if s[0] == "general.step"]
+        assert len(steps) == 1
+        for name, tid, t0, t1 in rec.spans:
+            if name.startswith(kind):
+                seen += 1
+                assert t0 <= t1
+                assert any(tid == st and s0 <= t0 and t1 <= s1
+                           for _, st, s0, s1 in steps), name
+    assert seen
+
+
+def test_every_sync_is_counted_once(recorded):
+    for rec, _ in recorded:
+        n = sum(s[0] == syncs.SPAN for s in rec.spans)
+        assert n >= 2      # the pc read: the unique and its read back
+        assert rec.counters[syncs.COUNTER] == n
+
+
+def test_handlers_are_named_by_opcode(recorded, runner):
+    from interpolation_engine_tpu_torch._shared import isa
+    names = {s[0] for rec, _ in recorded for s in rec.spans
+             if s[0].startswith("general.op.")}
+    assert {"general.op.list_append", "general.op.delete",
+            "general.op.goto_map_lit"} <= names
+    assert set(runner.step.op_spans.values()) == {
+        "general.op." + n for n in isa.OP_NAMES.values()}
+
+
+@pytest.fixture(scope="module")
+def turbo():
+    return TurboEngine(compiled(), TurboConfig(
+        tile=8, width=64, out_width=192, k_steps=4), device="cpu")
+
+
+def test_load_batch_and_launch_spans(turbo):
+    states = [dict(STATE, order_index=t) for t in TASKS]
+    with EVENTS.recording() as rec:
+        for _ in range(3):
+            batch = turbo.load_batch(states)
+        step = turbo.step_fn(len(states))
+        for _ in range(2):
+            batch = step(batch)
+    names = [s[0] for s in rec.spans]
+    assert names.count("turbo.load_batch") == 3
+    assert names.count("turbo.launch") == 2
+
+
+def test_a_span_is_on_the_time_ns_clock(turbo):
+    states = [dict(STATE, order_index=t) for t in TASKS]
+    with EVENTS.recording() as rec:
+        before = time.time_ns() / 1e3
+        turbo.load_batch(states)
+        after = time.time_ns() / 1e3
+    (name, tid, t0, t1), = rec.spans
+    assert tid == threading.get_ident()
+    assert before <= t0 <= t1 <= after
+    a, t, b = time.time_ns() / 1e3, events.now_us(), time.time_ns() / 1e3
+    assert a <= t <= b
+
+
+def test_recording_is_one_at_a_time_and_ends_on_error():
+    with EVENTS.recording() as rec:
+        with pytest.raises(RuntimeError):
+            with EVENTS.recording():
+                pass
+        EVENTS.count("c")
+        EVENTS.count("c", 4)
+        with EVENTS.span("outer"):
+            with EVENTS.span("inner"):
+                pass
+    assert rec.counters == {"c": 5}
+    assert [s[0] for s in rec.spans] == ["inner", "outer"]
+    with pytest.raises(ValueError):
+        with EVENTS.recording():
+            raise ValueError
+    assert EVENTS.recorded is None
+
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent / \
+    "interpolation_engine_tpu_torch"
+# the modules of the general step's path on a card
+SYNC_MODULES = ["vm/step.py", "vm/state.py", "vm/bytestr.py",
+                "ops/interp_kernel.py", "ops/math_kernel.py",
+                "ops/match_kernel.py", "ops/brace_scan.py"]
+READS_BACK = {"nonzero", "tolist", "item", "unique", "cpu", "numpy"}
+# functions off the step's path on a card: the plain versions
+# (``*_reference``) and what only they call, the step's constructor and
+# the batch's host codecs
+OFF_THE_PATH = {"_put", "__init__", "from_numpy", "to_numpy"}
+
+
+def syncs_outside_host_sync(tree) -> list:
+    """Calls that wait on the card and are not made through
+    ``host_sync``: a read back (``READS_BACK``, numpy's own aside), a
+    tensor built from host data on a device (``torch.tensor`` or
+    ``as_tensor`` with ``device=``), a host array moved there
+    (``torch.from_numpy(...).to(...)``). A boolean mask used as an index
+    is not seen here: the card's sync debug mode finds those."""
+    wrapped, bare = set(), []
+
+    def is_sync(node) -> bool:
+        if isinstance(node, ast.Attribute):
+            return node.attr in READS_BACK and \
+                getattr(node.value, "id", None) != "np"
+        if not isinstance(node, ast.Call):
+            return False
+        f = node.func
+        if isinstance(f, ast.Attribute) and f.attr in ("tensor",
+                                                       "as_tensor"):
+            return any(k.arg == "device" for k in node.keywords)
+        return isinstance(f, ast.Attribute) and f.attr == "to" and \
+            isinstance(f.value, ast.Call) and \
+            getattr(f.value.func, "attr", None) == "from_numpy"
+
+    def visit(node, func):
+        if isinstance(node, ast.FunctionDef):
+            func = node.name
+            if func.endswith("_reference") or func in OFF_THE_PATH:
+                return
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "id", None) == "host_sync":
+            wrapped.update(id(n) for a in node.args[:2]
+                           for n in ast.walk(a))
+        if is_sync(node) and id(node) not in wrapped:
+            bare.append((func, node.lineno))
+        for child in ast.iter_child_nodes(node):
+            visit(child, func)
+
+    visit(tree, "")
+    return bare
+
+
+@pytest.mark.parametrize("rel", SYNC_MODULES)
+def test_every_sync_call_goes_through_host_sync(rel):
+    """No call that waits on the card sits on the general step's path
+    outside ``host_sync``, so the counter cannot miss a new one."""
+    bare = syncs_outside_host_sync(ast.parse((ROOT / rel).read_text()))
+    assert not bare, f"{rel}: syncs outside host_sync: {bare}"
+
+
+def test_the_sync_scan_sees_each_kind():
+    src = """
+def f(t, dev):
+    a = t.nonzero()
+    b = torch.tensor([1], device=dev)
+    c = torch.from_numpy(x).to(dev)
+    d = host_sync(torch.nonzero, t)
+    e = host_sync(torch.Tensor.to, torch.from_numpy(x), dev)
+    g = torch.tensor([1])
+    h = np.unique(x)
+def f_reference(t):
+    return t.tolist()
+"""
+    assert [ln for _, ln in syncs_outside_host_sync(ast.parse(src))] == [
+        3, 4, 5]
