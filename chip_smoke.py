@@ -35,11 +35,15 @@ and prints no result):
 5. the main path, the bench's default workload at its widths: the adventure
    program (lists, a parallel race per turn) at 131,072 instances; kernel
    and plain version bit-identical over the first two launches, with both
-   times; the kernel's ms per launch at K = 1, 8 and 64, with the staging
-   alone (every instance at a pc past the program), and on a batch of DONE
-   instances (the skip path) beside a copy of the batch; then ``run_async`` to the end at 40 turns through the kernel,
+   times; the kernel's ms per launch at K = 1, 8, 32 and 64, the regroup
+   of the rows by pc alone (on this lockstep batch, its order the
+   identity) against those launches, the staging alone (every instance at
+   a pc past the program), and a batch of DONE instances (the skip path)
+   beside a copy of the batch; then ``run_async`` to the end at 40 turns
+   through the kernel,
    every instance DONE with the host engine's output and inserts, with the
-   steps' share of the wall time;
+   steps' share of the wall time, each launch's regroup equal to its plain
+   version (``regroup_reference``) and counted;
 6. race-io: every instance's race parks its input lane once per turn, 3
    turns, answered "cgo"; at the bench's 131,072 instances through the fast
    park path (every park a fast park, none through the lane servicing
@@ -127,7 +131,11 @@ and prints no result):
    1, 2 and 3 launches (some inside the parallel block; ms a row; at
    least 128 distinct states and more cursor chains than the 8 starts),
    ``load_batch`` of those states into a fresh engine, run to DONE, each
-   row equal to the host resumed from its state;
+   row equal to the host resumed from its state; in the three runs every
+   regroup equal to its plain version, some of them not the identity (the
+   round trip's 1,024 rows, under one wave of blocks, regroup none); the
+   regroup alone on the divergent batch, queued, beside its plain version
+   and its bound;
 17. resume on the general engine: 256 of phase 16's exported states
    through ``DeviceRunner.load_state`` at the bench's general VMConfig,
    the first launch's brace scans held against the plain version, run to
@@ -187,13 +195,15 @@ Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
 card asleep while the host queues the launches, so that it is the card's
 time alone. The host oracle is the port's own copy of the host runtime.
-The last two lines of standard output are one JSON object naming each kernel with its
+The last two lines of standard output are one JSON object naming each kernel (the
+regroup's three kernels, ``csrc/regroup.cu``, as one entry) with its
 launches on its main path, its largest deviation from the plain version,
 its time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes it must move over 3.35 TB/s, or its
 operations over 67 TFLOP/s, whichever is larger; over several cards, the
 busiest card's share) and the time of a PyTorch
-call computing the same (none exists for these kernels), then ``{"ok":
+call computing the same (none exists for these kernels but the regroup,
+whose plain version is ``torch.sort``), then ``{"ok":
 true, "device": ...}``. Needs one CUDA card; imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -219,6 +229,7 @@ MATH_SRC = "interpolation_engine_tpu_torch/csrc/math_eval.cu"
 MATH_REPLACES = "interpolation_engine_tpu/ops/math_kernel.py:92"
 MATCH_SRC = "interpolation_engine_tpu_torch/csrc/wildcard_match.cu"
 MATCH_REPLACES = "interpolation_engine_tpu/ops/match_kernel.py:188"
+REGROUP_SRC = "interpolation_engine_tpu_torch/csrc/regroup.cu"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 OPS_PER_S = 67e12             # float32 outside the tensor cores, the same
@@ -656,7 +667,8 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager
     from interpolation_engine_tpu_torch.ops.turbo_step import (
-        turbo_step, turbo_step_reference)
+        launch_plan, regroup, regroups, sm_count, turbo_step,
+        turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
         C_PC, C_STATUS, C_STEPS, DONE, TurboConfig, TurboEngine)
 
@@ -686,11 +698,23 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
         f"{steps / t_ref:.1f} tasks/s ({t_ref / L * 1e3:.3f} ms/launch); "
         f"{tile_line(eng.tables, b0, tcfg.tile)}")
     del kern, ref
-    # per-launch against per-step cost: the first L launches at K = 1, 8, 64
+    # per-launch against per-step cost: the first L launches at K = 1, 8,
+    # 32, 64
     per_k = {k: timed(lambda b, k=k: turbo_step(eng.tables, b, k), clone(b0),
-                      L, True) / L * 1e3 for k in (1, 8, 64)}
+                      L, True) / L * 1e3 for k in (1, 8, 32, 64)}
     log(f"phase 5 adventure ms/launch by K [{card}]: " + ", ".join(
         f"K={k} {ms:.3f}" for k, ms in per_k.items()))
+    # the regroup alone on this lockstep batch (its order the identity),
+    # against the launches above, which each begin with it
+    calls = 100
+    group_ms = timed(lambda b: regroup(eng.tables, b.regs), b0, calls,
+                     True) / calls * 1e3
+    tile = launch_plan(eng.tables, b0, tcfg.tile).tile
+    log(f"phase 5 adventure, the regroup alone [{card}]: {group_ms:.4f} "
+        f"ms/call ({calls} calls queued), {100 * group_ms / per_k[32]:.2f} "
+        f"% of a launch at K=32, {100 * group_ms / per_k[64]:.2f} % at "
+        f"K=64; a launch of {n} rows at {tile} a block regroups: "
+        f"{regroups(n, tile, sm_count(b0.regs.device))}")
     # the copies alone: every instance RUNNING at a pc past the program,
     # so each tile is staged in and out and steps nothing; and a batch of
     # DONE instances, whose tiles read their status column only
@@ -716,26 +740,38 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     torch.cuda.synchronize()
     turbo_step.launches = 0
     turbo_step_reference.launches = 0
-    t0 = time.perf_counter()
-    final = eng.run(batch)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    regroup.launches = 0
+    with CheckedRegroup("phase 5") as groups:
+        t0 = time.perf_counter()
+        final = eng.run(batch)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
     launches = turbo_step.launches
     if launches <= 0 or turbo_step_reference.launches != 0:
         raise AssertionError(
             f"phase 5: main path launched the kernel {launches} times and "
             f"the plain version {turbo_step_reference.launches} times")
+    tile = launch_plan(eng.tables, batch, tcfg.tile).tile
+    if regroup.launches != groups.compared or groups.compared != (
+            launches if regroups(n, tile, sm_count(batch.regs.device))
+            else 0):
+        raise AssertionError(
+            f"phase 5: {regroup.launches} regroups, {groups.compared} "
+            f"compared, over {launches} launches")
     check_all_done("phase 5", eng, final, host)
     total = int(final.regs[:, C_STEPS].long().sum())
     log(f"phase 5 adventure main path [{card}]: {n} instances DONE with "
         f"the host's {len(host['output'].encode())}-byte output, {launches} "
         f"kernel launches, {eng.ring_stats['parks']} parks, {total} steps "
         f"in {elapsed:.3f} s = {total / elapsed:.1f} tasks/s end to end; "
-        f"the steps {kernel_s * 1e3:.3f} ms of it ({kernel_s / elapsed:.4f})")
+        f"the steps {kernel_s * 1e3:.3f} ms of it ({kernel_s / elapsed:.4f});"
+        f" {groups.compared} regroups, each equal to its plain version "
+        f"({groups.moved} not the identity)")
     return {"launches": launches, "ms": t_kern / L * 1e3,
             "plain_ms": t_ref / L * 1e3, "max_abs_err": worst,
-            **launch_bound}
+            "regroup_launches": regroup.launches,
+            "regroup_max_abs_err": groups.worst, **launch_bound}
 
 
 def phase6(card: str, tmp: str, n: int = 131_072,
@@ -966,6 +1002,53 @@ class CheckedScan:
 
     def seconds(self) -> float:
         return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+class CheckedRegroup:
+    """Inside the block, every regroup of a turbo launch held to its plain
+    version: for each launch that ``launch_order`` regroups, the rows' pc
+    and status columns (C_PC and C_STATUS, the first two) and the
+    permutation are copied on the card as the launches queue, with no host
+    sync, and compared with ``regroup_reference`` of those columns on exit.
+    ``moved`` counts the permutations that are not the identity."""
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self.calls = []
+        self.compared = self.moved = self.worst = 0
+
+    def __enter__(self):
+        from interpolation_engine_tpu_torch.ops import turbo_step as ts
+        self.ts, self.real = ts, ts.launch_order
+
+        def checked(tables, regs, tile, sms):
+            order = self.real(tables, regs, tile, sms)
+            if order is not None:
+                self.calls.append((regs[:, :2].clone(), order.clone(),
+                                   tables.host.n_instr))
+            return order
+        ts.launch_order = checked
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.ts.launch_order = self.real
+        if exc[0] is not None:
+            return False
+        for cols, perm, n_instr in self.calls:
+            want = self.ts.regroup_reference(cols, n_instr)
+            diff = int((perm.long() - want.long()).abs().max()) \
+                if perm.numel() else 0
+            self.worst = max(self.worst, diff)
+            self.compared += 1
+            self.moved += not torch.equal(
+                perm, torch.arange(perm.numel(), dtype=perm.dtype,
+                                   device=perm.device))
+            if diff:
+                raise AssertionError(f"{self.phase}: the regroup and its "
+                                     f"plain version differ")
+        self.calls = []
+        return False
 
 
 # M and W's launches on the general engine's main paths (phases 8, 14, 15,
@@ -1894,27 +1977,43 @@ def phase16(card: str, tmp: str, n: int = 131_072,
     import torch
     from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch.ops.turbo_step import (
+        launch_plan, regroup, regroup_reference, regroups, sm_count,
         turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
         C_PARMODE, C_STEPS, DONE, TurboConfig, TurboEngine)
     tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
                        elem_width=32)   # phase 5's
     launches = 0
+    groups = {"launches": 0, "compared": 0, "moved": 0, "worst": 0}
 
     def counted_run(eng, batch):
         nonlocal launches
         turbo_step.launches = turbo_step_reference.launches = 0
+        regroup.launches = 0
         sync_all()
-        t0 = time.perf_counter()
-        final = eng.run(batch)
-        sync_all()
-        elapsed = time.perf_counter() - t0
+        with CheckedRegroup("phase 16") as checked:
+            t0 = time.perf_counter()
+            final = eng.run(batch)
+            sync_all()
+            elapsed = time.perf_counter() - t0
         if turbo_step.launches <= 0 or turbo_step_reference.launches:
             raise AssertionError(
                 f"phase 16: the run launched the kernel {turbo_step.launches}"
                 f" times, the plain version "
                 f"{turbo_step_reference.launches}")
+        tile = launch_plan(eng.tables, batch, eng.tcfg.tile).tile
+        if regroup.launches != checked.compared or checked.compared != (
+                turbo_step.launches if regroups(batch.regs.shape[0], tile,
+                                                sm_count(batch.regs.device))
+                else 0):
+            raise AssertionError(
+                f"phase 16: {regroup.launches} regroups, {checked.compared} "
+                f"compared, over {turbo_step.launches} launches")
         launches += turbo_step.launches
+        groups["launches"] += regroup.launches
+        groups["compared"] += checked.compared
+        groups["moved"] += checked.moved
+        groups["worst"] = max(groups["worst"], checked.worst)
         return final, elapsed
 
     # (a) divergent: 8 states at spread order indexes (bench.py:516-527)
@@ -1946,6 +2045,21 @@ def phase16(card: str, tmp: str, n: int = 131_072,
         raise AssertionError("phase 16: kernel and plain version differ on "
                              "the divergent batch's first launch")
     del kern, ref
+    # the regroup alone on this batch (131,072 rows at 8 pcs, in turn),
+    # queued, beside its plain version and its bound: each row's pc and
+    # status (one 32-byte sector) read, its place written
+    n_instr = eng.tables.host.n_instr
+    calls = 100
+    group_ms = timed(lambda b: regroup(eng.tables, b.regs), batch, calls,
+                     True) / calls * 1e3
+    group_plain_ms = timed(lambda b: regroup_reference(b.regs, n_instr),
+                           batch, 10) / 10 * 1e3
+    group_bound = bound(n * (32 + 4), 0)
+    log(f"phase 16 divergent, the regroup alone [{card}]: {group_ms:.4f} "
+        f"ms/call ({calls} calls queued), plain version "
+        f"{group_plain_ms:.4f} ms/call; bound {group_bound['bound_ms']:.5f}"
+        f" ms ({group_bound['bound_by']}), the kernels at "
+        f"{group_bound['bound_ms'] / group_ms * 100:.1f} % of it")
     hosts = [run_host_from(src, states[c], canned_io(), tmp)
              for c in range(8)]
     final, elapsed = counted_run(eng, batch)
@@ -2036,8 +2150,17 @@ def phase16(card: str, tmp: str, n: int = 131_072,
         f"{n_states} distinct states, {n_chains} distinct cursor chains; "
         f"load_batch of those states and run to DONE in {elapsed:.3f} s, "
         f"each row equal to the host resumed from its state")
+    if groups["moved"] <= 0:
+        raise AssertionError("phase 16: every regroup was the identity")
+    log(f"phase 16 regroups [{card}]: {groups['compared']} over the three "
+        f"runs, each equal to its plain version, {groups['moved']} not the "
+        f"identity")
     return {"launches": launches, "max_abs_err": worst,
-            "states": exported, "hosts": hosts}
+            "states": exported, "hosts": hosts,
+            "regroup": {"launches": groups["launches"],
+                        "max_abs_err": groups["worst"], "ms": group_ms,
+                        "plain_ms": group_plain_ms,
+                        "library_ms": group_plain_ms, **group_bound}}
 
 
 def phase17(card: str, tmp: str, states: list, hosts: dict,
@@ -2688,13 +2811,13 @@ def phase20(card: str, n: int = 131_072) -> dict:
     from interpolation_engine_tpu_torch import bench
     from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
     from interpolation_engine_tpu_torch.ops.turbo_step import (
-        turbo_step, turbo_step_reference)
+        regroup, turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import TurboEngine
 
     torch.cuda.synchronize()
     kernels = (turbo_step, turbo_step_reference, scan_mod.brace_scan,
                scan_mod.brace_scan_reference)
-    for fn in kernels:
+    for fn in kernels + (regroup,):
         fn.launches = 0
     mw_reset()
     for workload, engine, env in BENCH_RUNS:
@@ -2708,6 +2831,7 @@ def phase20(card: str, n: int = 131_072) -> dict:
             f"s)")
     step_launches, plain_steps, scan_launches, plain_scans = (
         fn.launches for fn in kernels)
+    regroup_launches = regroup.launches
     log(f"phase 20 M and W launches in the bench runs: "
         f"{json.dumps(mw_collect('phase 20'))}")
     if step_launches <= 0 or scan_launches <= 0 or plain_steps or \
@@ -2754,7 +2878,8 @@ def phase20(card: str, n: int = 131_072) -> dict:
                            device="cuda")
     log(f"phase 20 adventure at width 512: "
         f"{tile_line(wide.tables, wide.make_batch(n), wide.tcfg.tile)}")
-    return {"step_launches": step_launches, "scan_launches": scan_launches}
+    return {"step_launches": step_launches, "scan_launches": scan_launches,
+            "regroup_launches": regroup_launches}
 
 
 MATH_NUMBERS = ("0", "1", "2", "3", "7", "9", "10", "31", "32", "99",
@@ -3087,6 +3212,13 @@ def main(argv=None) -> int:
     main_path["launches"] += resumed["launches"] + benched["step_launches"]
     main_path["max_abs_err"] = max(worst, main_path["max_abs_err"],
                                    resumed["max_abs_err"])
+    # the regroup: its launches on phases 5, 16 and 20's main paths, those
+    # of 5 and 16 held to the plain version, the times phase 16's
+    regrouped = dict(resumed["regroup"], launches=(
+        main_path.pop("regroup_launches") + resumed["regroup"]["launches"]
+        + benched["regroup_launches"]), max_abs_err=max(
+        main_path.pop("regroup_max_abs_err"),
+        resumed["regroup"]["max_abs_err"]))
     general["launches"] += general_resumed["launches"] + \
         general_mesh["launches"] + benched["scan_launches"]
     general["max_abs_err"] = max(general["max_abs_err"],
@@ -3099,7 +3231,9 @@ def main(argv=None) -> int:
         dict(name="sharded_turbo_step", source=KERNEL_SRC,
              replaces=SHARDED_REPLACES, **sharded),
         dict(name="chat_filter_kernel", source=FILTER_SRC,
-             replaces=FILTER_REPLACES, **chat)]
+             replaces=FILTER_REPLACES, **chat),
+        dict(name="regroup", source=REGROUP_SRC, replaces=None,
+             **regrouped)]
     # M and W: their launches on phases 8, 14, 15, 17, 18 and 20's general
     # paths, every call of phases 8 and 14's first two launches held to the
     # plain version, the times phase 21's
@@ -3114,8 +3248,9 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # no single PyTorch call computes a VM step, the four scan values, the
-    # chat filter, an expression's value or a wildcard match
-    kernels = [{k: dict(kern, route="cuda", library_ms=None)[k]
+    # chat filter, an expression's value or a wildcard match; the regroup's
+    # plain version is one, a stable torch.sort (its library_ms)
+    kernels = [{k: dict({"library_ms": None}, **kern, route="cuda")[k]
                 for k in keys} for kern in kernels]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

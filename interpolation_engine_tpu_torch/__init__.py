@@ -17,7 +17,8 @@ device modules by ``_shared``, and re-implements what touched JAX:
   one compiled kernel reads;
 * ``ops/turbo_step.py`` and ``csrc/turbo_step.cu`` — the step kernel,
   written by hand in CUDA C++, beside its plain PyTorch version, and the
-  step over a mesh's shards;
+  step over a mesh's shards; ``csrc/regroup.cu`` groups a large launch's
+  rows by pc first, so that a warp's rows start at one instruction;
 * ``vm/bytestr.py``, ``vm/state.py``, ``ops/interp_kernel.py``,
   ``ops/match_kernel.py``, ``ops/math_kernel.py`` and ``vm/step.py`` — the
   general engine: byte strings, the per-instance store and its codecs,

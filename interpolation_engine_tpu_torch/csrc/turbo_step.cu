@@ -29,14 +29,14 @@
 // access of a warp touched 32 rows a row apart and every link of the chain
 // paid device-memory latency: 3 % of the byte bound. So the kernel does
 // what the TPU kernel did with VMEM: one block takes a tile of T
-// consecutive instances (ops/turbo_step.py tile_plan sizes T and the
-// layout from the bytes per instance and the card's shared memory, 227 KB
-// a block on an H100) and
+// instances, T consecutive slots of the launch's row order (ops/turbo_step.py
+// tile_plan sizes T and the layout from the bytes per instance and the
+// card's shared memory, 227 KB a block on an H100) and
 //   1. stage in: copies the program tables (the flat int32 buffer, parsed
 //      once per block, and the literals when they are small) and the
 //      tile's register, string, output and meta rows into shared memory,
-//      neighbouring threads on neighbouring 16-byte units of the batch,
-//      with asynchronous copies (cp.async) so that many are in flight;
+//      neighbouring threads on neighbouring 16-byte units of a row, with
+//      asynchronous copies (cp.async) so that many are in flight;
 //   2. run: each thread steps its instance up to K times on shared memory,
 //      its render buffer and scratch row there too (no stack buffer);
 //   3. stage out: writes the tile back the same way, once.
@@ -50,6 +50,14 @@
 // step is a chain of dependent shared-memory loads and byte loops per
 // thread with only about 4 warps stepping on each SM (shared memory holds
 // about 110 adventure instances an SM), so latency sets the pace.
+//
+// The row order. A warp's 32 threads issue one instruction stream, so rows
+// of a warp at different pcs take their branches one after another. A
+// launch of more than one wave of blocks therefore first groups its rows by
+// pc into `perm` (csrc/regroup.cu: RUNNING rows by pc, the others last,
+// each bin in row order), and tile slot s steps row perm[s]; the rows stay
+// where they are in the batch. Each block notes its tile's rows in shared
+// memory at entry and stages each row in whole units.
 //
 // Semantics are those of ops/turbo_step.py turbo_step_reference, bit for
 // bit after every launch: ints wrap at 32 bits (computed in 64 bits and
@@ -1008,12 +1016,14 @@ __device__ void lane_yield(const Prog& g, const Lane& L) {
 
 // Where a block's tile lives in dynamic shared memory, in bytes: the fields
 // of ops/turbo_step.py TilePlan, in its order. T instances per block; the
-// parsed program (Prog) at 0, then the tables, then the state. `*_is` is the
-// stride from one instance to the next, `*_ps` from one meta plane or sbuf
-// row to the next. lits_off < 0: the literals stay in device memory.
+// parsed program (Prog) at 0, then the tables, the tile's row indices (T
+// ints at idx_off), then the state. `*_is` is the stride from one instance
+// to the next, `*_ps` from one meta plane or sbuf row to the next.
+// lits_off < 0: the literals stay in device memory.
 struct Tile {
   int tile, smem;
   int flat_off, flat_bytes, lits_off, lits_bytes;
+  int idx_off;
   int regs_off, regs_is;
   int meta_off, meta_is, meta_ps;
   int sbuf_off, sbuf_is, sbuf_ps;
@@ -1022,7 +1032,7 @@ struct Tile {
   int buf_off, buf_is;
   int rows, planes, cells;
 };
-constexpr int TILE_FIELDS = 23;
+constexpr int TILE_FIELDS = 24;
 static_assert(sizeof(Tile) == TILE_FIELDS * sizeof(int), "Tile is flat");
 static_assert(sizeof(Prog) <= PROG_BYTES, "Prog fits its region");
 
@@ -1033,6 +1043,7 @@ struct Args {
   uint8_t* sbuf;  // (rows, n, W)
   uint8_t* out;   // (n, OW)
   int* meta;      // (planes, n, cells)
+  const int* perm;  // (n,): tile slot s steps row perm[s]; null: row s
   int n, regw, W, OW, K;
   Tile tl;
 };
@@ -1059,15 +1070,17 @@ __device__ __forceinline__ void copy_async_wait() {
 
 // Copy `planes` planes of cnt rows of len bytes between the batch and the
 // tile, block-wide (thread t of nt). In the batch, plane p's rows lie back
-// to back from g + p * gps; in shared memory row i of plane p is at
-// s + p * sps + i * sis. Neighbouring threads take neighbouring units of the
-// batch: 16 bytes where the alignment allows, else 4, else 1. A 16-byte
+// to back from g + p * gps, and row i of the tile is the batch's row
+// rows[i] (row i where rows is null); in shared memory row i of plane p is
+// at s + p * sps + i * sis. Neighbouring threads take neighbouring units of
+// a row: 16 bytes where the alignment allows, else 4, else 1. A 16-byte
 // unit whose shared address is only 4-aligned (a padded row) moves as four
 // words. IN copies asynchronously (the caller waits); out is plain stores.
 template <bool IN>
 __device__ __forceinline__ void stage(uint8_t* s, uint8_t* g, int planes,
-                                      size_t gps, int cnt, int len, int sps,
-                                      int sis, int t, int nt) {
+                                      size_t gps, const int* rows, int cnt,
+                                      int len, int sps, int sis, int t,
+                                      int nt) {
   if (planes <= 0 || cnt <= 0 || len <= 0) return;
   const uintptr_t ga = (uintptr_t)g | (uintptr_t)gps;
   const uintptr_t sa = (uintptr_t)s | (uintptr_t)sps | (uintptr_t)sis;
@@ -1082,7 +1095,8 @@ __device__ __forceinline__ void stage(uint8_t* s, uint8_t* g, int planes,
   const int di = nt / per, dk = nt % per;
 #pragma unroll 4
   for (int q = t; q < total; q += nt) {
-    uint8_t* gq = g + (size_t)p * gps + ((size_t)i * per + k) * u;
+    const size_t r = rows ? (size_t)rows[i] : (size_t)i;
+    uint8_t* gq = g + (size_t)p * gps + (r * per + k) * u;
     uint8_t* sq = s + (size_t)p * sps + (size_t)i * sis + (size_t)k * u;
     k += dk;
     i += di;
@@ -1122,35 +1136,40 @@ __device__ __forceinline__ void stage(uint8_t* s, uint8_t* g, int planes,
   }
 }
 
-// The tile's register, meta, string and output rows (instances i0 ..
-// i0 + cnt), into shared memory or back.
+// The tile's register, meta, string and output rows (the cnt batch rows
+// that the tile's row indices at idx_off name), into shared memory or back.
 template <bool IN>
-__device__ __forceinline__ void stage_state(const Args& a, int i0, int cnt,
-                                            int t, int nt, uint8_t* sm) {
+__device__ __forceinline__ void stage_state(const Args& a, int cnt, int t,
+                                            int nt, uint8_t* sm) {
   const Tile& tl = a.tl;
+  const int* rows = reinterpret_cast<const int*>(sm + tl.idx_off);
   const size_t n = (size_t)a.n, rb = 4 * (size_t)a.regw,
                cb = 4 * (size_t)tl.cells;
-  stage<IN>(sm + tl.regs_off, reinterpret_cast<uint8_t*>(a.regs) + i0 * rb,
-            1, 0, cnt, (int)rb, 0, tl.regs_is, t, nt);
-  stage<IN>(sm + tl.meta_off, reinterpret_cast<uint8_t*>(a.meta) + i0 * cb,
-            tl.planes, n * cb, cnt, (int)cb, tl.meta_ps, tl.meta_is, t, nt);
-  stage<IN>(sm + tl.sbuf_off, a.sbuf + (size_t)i0 * a.W, tl.rows,
-            n * a.W, cnt, a.W, tl.sbuf_ps, tl.sbuf_is, t, nt);
-  stage<IN>(sm + tl.out_off, a.out + (size_t)i0 * a.OW, 1, 0, cnt, a.OW, 0,
-            tl.out_is, t, nt);
+  stage<IN>(sm + tl.regs_off, reinterpret_cast<uint8_t*>(a.regs), 1, 0, rows,
+            cnt, (int)rb, 0, tl.regs_is, t, nt);
+  stage<IN>(sm + tl.meta_off, reinterpret_cast<uint8_t*>(a.meta), tl.planes,
+            n * cb, rows, cnt, (int)cb, tl.meta_ps, tl.meta_is, t, nt);
+  stage<IN>(sm + tl.sbuf_off, a.sbuf, tl.rows, n * a.W, rows, cnt, a.W,
+            tl.sbuf_ps, tl.sbuf_is, t, nt);
+  stage<IN>(sm + tl.out_off, a.out, 1, 0, rows, cnt, a.OW, 0, tl.out_is, t,
+            nt);
 }
 
 __device__ __forceinline__ int tile_rows(const Args& a, int b) {
   return min(a.tl.tile, a.n - b * a.tl.tile);
 }
 
-// Phase 0, per thread: is this thread's instance RUNNING at entry? A block
-// none of whose instances is stages nothing.
-__device__ __forceinline__ bool running_at_entry(const Args& a, int b,
-                                                 int t) {
-  const int i = b * a.tl.tile + t;
-  return t < tile_rows(a, b) &&
-         a.regs[(size_t)i * a.regw + C_STATUS] == RUNNING;
+// Phase 0, per thread: this thread's tile slot takes its batch row
+// (perm[slot], or the slot itself), noted in the tile's row indices; is
+// that instance RUNNING at entry? A block none of whose instances is stages
+// nothing.
+__device__ __forceinline__ bool running_at_entry(const Args& a, int b, int t,
+                                                 uint8_t* sm) {
+  if (t >= tile_rows(a, b)) return false;
+  const int slot = b * a.tl.tile + t;
+  const int i = a.perm ? a.perm[slot] : slot;
+  reinterpret_cast<int*>(sm + a.tl.idx_off)[t] = i;
+  return a.regs[(size_t)i * a.regw + C_STATUS] == RUNNING;
 }
 
 // Phase 1, block-wide: thread 0 parses the header once for the block into
@@ -1184,13 +1203,12 @@ __device__ __forceinline__ void stage_in(const Args& a, int b, int t, int nt,
     *reinterpret_cast<Prog*>(sm) = g;
   }
   stage<true>(sm + tl.flat_off,
-              reinterpret_cast<uint8_t*>(const_cast<int*>(a.flat)), 1, 0, 1,
-              tl.flat_bytes, 0, 0, t, nt);
+              reinterpret_cast<uint8_t*>(const_cast<int*>(a.flat)), 1, 0,
+              nullptr, 1, tl.flat_bytes, 0, 0, t, nt);
   if (tl.lits_off >= 0)
-    stage<true>(sm + tl.lits_off, const_cast<uint8_t*>(a.lits), 1, 0, 1,
-                tl.lits_bytes, 0, 0, t, nt);
-  const int i0 = b * tl.tile;
-  stage_state<true>(a, i0, tile_rows(a, b), t, nt, sm);
+    stage<true>(sm + tl.lits_off, const_cast<uint8_t*>(a.lits), 1, 0,
+                nullptr, 1, tl.lits_bytes, 0, 0, t, nt);
+  stage_state<true>(a, tile_rows(a, b), t, nt, sm);
   copy_async_wait();
 }
 
@@ -1220,20 +1238,21 @@ __device__ __forceinline__ void run(const Args& a, int b, int t,
 // Phase 3, block-wide: the tile back to the batch, once.
 __device__ __forceinline__ void stage_out(const Args& a, int b, int t, int nt,
                                           uint8_t* sm) {
-  stage_state<false>(a, b * a.tl.tile, tile_rows(a, b), t, nt, sm);
+  stage_state<false>(a, tile_rows(a, b), t, nt, sm);
 }
 
 // The kernel's arguments from the launch's; false when out of range.
 bool make_args(Args* a, const int* flat, const uint8_t* lits, int* regs,
-               uint8_t* sbuf, uint8_t* out, int* meta, int n, int regw,
-               int width, int out_width, int k_steps, const int* plan,
-               int plan_len) {
+               uint8_t* sbuf, uint8_t* out, int* meta, const int* perm, int n,
+               int regw, int width, int out_width, int k_steps,
+               const int* plan, int plan_len) {
   if (plan_len != TILE_FIELDS || width <= 0 || width > MAX_W) return false;
-  *a = Args{flat, lits, regs, sbuf, out, meta, n, regw, width, out_width,
-            k_steps, Tile{}};
+  *a = Args{flat, lits, regs, sbuf, out, meta, perm, n, regw, width,
+            out_width, k_steps, Tile{}};
   memcpy(&a->tl, plan, sizeof(Tile));
   return a->tl.tile > 0 && a->tl.tile <= MAX_TILE &&
-         a->tl.smem >= PROG_BYTES;
+         a->tl.smem >= PROG_BYTES && a->tl.idx_off >= PROG_BYTES &&
+         a->tl.idx_off % 4 == 0;
 }
 
 #ifdef __CUDACC__
@@ -1245,7 +1264,7 @@ __global__ void __launch_bounds__(MAX_TILE)
     turbo_step_kernel(const Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int b = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
-  if (!__syncthreads_or(running_at_entry(a, b, t))) return;
+  if (!__syncthreads_or(running_at_entry(a, b, t, smem))) return;
   stage_in(a, b, t, nt, smem);
   __syncthreads();
   run(a, b, t, smem);
@@ -1262,15 +1281,18 @@ static_assert(HEADER == 32 && OFF0 + 11 <= HEADER, "flat header size");
 constexpr int MAX_DEVICES = 64;
 
 // Launch on `stream` with the tile plan `plan` (TILE_FIELDS ints, host
-// memory); returns cudaGetLastError() (0 on success).
+// memory), tile slot s stepping row perm[s] (perm: n ints in device memory,
+// a permutation of the rows; null: row s); returns cudaGetLastError() (0 on
+// success).
 extern "C" int turbo_step_launch(const int* flat, const uint8_t* lits,
                                  int* regs, uint8_t* sbuf, uint8_t* out,
-                                 int* meta, int n, int regw, int width,
-                                 int out_width, int k_steps, const int* plan,
-                                 int plan_len, void* stream) {
+                                 int* meta, const int* perm, int n, int regw,
+                                 int width, int out_width, int k_steps,
+                                 const int* plan, int plan_len,
+                                 void* stream) {
   if (n <= 0 || k_steps <= 0) return 0;
   Args a;
-  if (!make_args(&a, flat, lits, regs, sbuf, out, meta, n, regw, width,
+  if (!make_args(&a, flat, lits, regs, sbuf, out, meta, perm, n, regw, width,
                  out_width, k_steps, plan, plan_len))
     return (int)cudaErrorInvalidValue;
   int dev = 0;

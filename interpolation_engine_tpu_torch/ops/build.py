@@ -86,8 +86,10 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     ints = ctypes.POINTER(i)
-    lib.turbo_step_launch.argtypes = [p] * 6 + [i] * 5 + [ints, i, p]
+    lib.turbo_step_launch.argtypes = [p] * 7 + [i] * 5 + [ints, i, p]
     lib.turbo_step_launch.restype = i
+    lib.regroup_launch.argtypes = [p] + [i] * 4 + [p] * 4
+    lib.regroup_launch.restype = i
     lib.turbo_step_attributes.argtypes = [ints]
     lib.turbo_step_attributes.restype = i
     lib.turbo_shared_memory.argtypes = [ints]

@@ -24,10 +24,14 @@ A park inside a parallel block suspends the current thread lane (the lane
 yield of the TPU kernel): its state becomes WAIT and its saved pc the
 parked pc. The host ring decides which lane runs next.
 
-The kernel runs one block per tile of consecutive instances, staged in
-shared memory; ``tile_plan`` sizes the tile and lays it out for the card's
-shared memory, and the wrapper hands the plan to the kernel
-(``launch_plan``: built once per shape and kept with the tables).
+The kernel runs one block per tile of instances, staged in shared memory;
+``tile_plan`` sizes the tile and lays it out for the card's shared memory,
+and the wrapper hands the plan to the kernel (``launch_plan``: built once
+per shape and kept with the tables). A tile is T consecutive slots of the
+launch's row order: on a launch of more than one wave of blocks the
+wrapper first groups the rows by pc on the card (``regroup``,
+``csrc/regroup.cu``), so that a warp's rows start at one instruction;
+otherwise slot s is row s (``launch_order``). Rows never move in the batch.
 
 Each function counts its launches in ``.launches``.
 """
@@ -35,13 +39,17 @@ Each function counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import astuple, dataclass, field
 from functools import cached_property
+from typing import Optional
 
 import torch
 
+from ..core.events import EVENTS
 from ..vm import turbo_tables as tt
 from ..vm.state import T_EMPTY, T_INT, T_LIST, T_STR
+from ..vm.syncs import host_sync
 
 RUNNING, DONE, PARKED = 0, 1, 2
 C_PC, C_STATUS, C_STEPS, C_OUTLEN = 0, 1, 2, 3
@@ -55,6 +63,9 @@ MAX_TILE = 256           # csrc/turbo_step.cu MAX_TILE: threads per block
 PROG_BYTES = 256         # csrc/turbo_step.cu PROG_BYTES: the parsed program
 ROW_PAD = 4              # bytes past a byte row's 16-byte round-up
 BLOCKS_PER_SM = 2        # the tile is sized for this many blocks an SM
+REGROUP_THREADS = 256    # csrc/regroup.cu THREADS: a chunk's block
+REGROUP_CHUNK = 1024     # rows a chunk of the regroup, at least
+REGROUP_COUNTS = 65_536  # the most bin counts its one-block scan takes
 _POW10 = [10 ** k for k in range(10)]
 
 
@@ -68,6 +79,8 @@ class StepTables:
     lits: torch.Tensor   # (L, W) uint8
     # launch_plan's plans, by the batch's shapes and the tile cap
     plans: dict = field(default_factory=dict, repr=False, compare=False)
+    # regroup's scratch (RegroupScratch), by rows and stream
+    scratch: dict = field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def on(cls, host: tt.TurboTables, device) -> "StepTables":
@@ -150,7 +163,8 @@ class TilePlan:
     from one instance to the next, ``*_ps`` from one meta plane or sbuf row
     to the next (row r of instance t of the sbuf region is at
     ``sbuf_off + r * sbuf_ps + t * sbuf_is``). ``lits_off`` is -1 when the
-    literals stay in device memory. ``rows``, ``planes`` and ``cells`` are
+    literals stay in device memory. ``idx_off`` holds the batch row of each
+    of the tile's slots (T int32). ``rows``, ``planes`` and ``cells`` are
     the batch's R, M and 3E."""
     tile: int
     smem: int
@@ -158,6 +172,7 @@ class TilePlan:
     flat_bytes: int
     lits_off: int
     lits_bytes: int
+    idx_off: int
     regs_off: int
     regs_is: int
     meta_off: int
@@ -230,9 +245,10 @@ def _strides(shape: TileShape):
 
 
 def instance_bytes(shape: TileShape) -> int:
-    """Shared-memory bytes one instance takes in a tile."""
+    """Shared-memory bytes one instance takes in a tile: its rows and its
+    row index."""
     regs, meta, sbuf, out, scr, buf = _strides(shape)
-    return (regs + shape.planes * meta + shape.rows * sbuf + out + scr
+    return (4 + regs + shape.planes * meta + shape.rows * sbuf + out + scr
             + buf)
 
 
@@ -243,7 +259,8 @@ def _layout(shape: TileShape, t: int, lits_shared: bool):
     at = PROG_BYTES
     for name, size in (("flat", shape.flat_bytes),
                        ("lits", shape.lits_bytes if lits_shared else 0),
-                       ("regs", t * regs), ("meta", shape.planes * t * meta),
+                       ("idx", 4 * t), ("regs", t * regs),
+                       ("meta", shape.planes * t * meta),
                        ("sbuf", shape.rows * t * sbuf), ("out", t * out),
                        ("scr", t * scr), ("buf", t * buf)):
         off[name] = at
@@ -309,7 +326,8 @@ def tile_plan(tables: StepTables, batch, tile: int = 128,
         tile=t, smem=total, flat_off=off["flat"],
         flat_bytes=shape.flat_bytes,
         lits_off=off["lits"] if lits_shared else -1,
-        lits_bytes=shape.lits_bytes, regs_off=off["regs"], regs_is=regs_is,
+        lits_bytes=shape.lits_bytes, idx_off=off["idx"],
+        regs_off=off["regs"], regs_is=regs_is,
         meta_off=off["meta"], meta_is=meta_is, meta_ps=t * meta_is,
         sbuf_off=off["sbuf"], sbuf_is=sbuf_is, sbuf_ps=t * sbuf_is,
         out_off=off["out"], out_is=out_is, scr_off=off["scr"], scr_is=scr_is,
@@ -331,12 +349,142 @@ def launch_plan(tables: StepTables, batch, tile: int = 128) -> TilePlan:
     return plan
 
 
+@functools.cache
+def sm_count(device) -> int:
+    """CUDA ``device``'s SMs."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def regroups(n: int, tile: int, sms: int) -> bool:
+    """Whether a launch of n rows at ``tile`` instances a block regroups
+    its rows: when its grid is more than one wave of resident blocks
+    (``BLOCKS_PER_SM`` on each of ``sms`` SMs). In one wave every block
+    runs at once and the regroup's few microseconds are not won back."""
+    return -(-n // tile) > BLOCKS_PER_SM * sms
+
+
+def _regroup_key(regs: torch.Tensor, n_instr: int) -> torch.Tensor:
+    """Each row's bin: its pc when RUNNING at a pc in [0, n_instr), else
+    n_instr."""
+    pc = regs[:, C_PC]
+    live = (regs[:, C_STATUS] == RUNNING) & (pc >= 0) & (pc < n_instr)
+    return pc.masked_fill(~live, n_instr)
+
+
+def regroup_reference(regs: torch.Tensor, n_instr: int) -> torch.Tensor:
+    """The plain version of ``csrc/regroup.cu``: the rows of ``regs``
+    (N, REGW) int32 as an int32 permutation, RUNNING rows binned by pc in
+    pc order, then every other row (and a RUNNING row at a pc past the
+    program), each bin in row order: a stable sort by the bin."""
+    key = _regroup_key(regs, n_instr)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+def regroup_chunk(n: int, n_instr: int) -> int:
+    """Rows a block of the regroup takes: ``REGROUP_CHUNK``, or more where
+    the bins (n_instr + 1) times the chunks would pass ``REGROUP_COUNTS``,
+    in whole rounds of ``REGROUP_THREADS``."""
+    chunks = max(1, min(-(-n // REGROUP_CHUNK),
+                        REGROUP_COUNTS // (n_instr + 1)))
+    rows = -(-n // chunks)
+    return -(-rows // REGROUP_THREADS) * REGROUP_THREADS
+
+
+@dataclass
+class RegroupScratch:
+    """What ``regroup`` writes on the card for a batch of one shape, made
+    once: the rows' bins, the chunks' bin counts and the permutation."""
+    chunk: int
+    keys: torch.Tensor
+    counts: torch.Tensor
+    perm: torch.Tensor
+
+
+def regroup(tables: StepTables, regs: torch.Tensor) -> torch.Tensor:
+    """``regroup_reference``'s permutation of the rows of ``regs``: on the
+    card by ``csrc/regroup.cu`` on the current stream, with no host sync,
+    into a tensor kept with ``tables`` that the next regroup of that shape
+    on that stream overwrites (counted in ``.launches``); on the CPU by the
+    plain version."""
+    n_instr = tables.host.n_instr
+    if regs.device.type != "cuda":
+        return regroup_reference(regs, n_instr)
+    from .build import load
+    lib = load()
+    n = regs.shape[0]
+    stream = torch.cuda.current_stream(regs.device).cuda_stream
+    scr = tables.scratch.get((n, stream))
+    if scr is None:
+        chunk = regroup_chunk(n, n_instr)
+        counts = (n_instr + 1) * -(-n // chunk)
+
+        def ints(k):
+            return torch.empty(k, dtype=torch.int32, device=regs.device)
+        scr = tables.scratch[(n, stream)] = RegroupScratch(
+            chunk, ints(n), ints(counts), ints(n))
+    rc = lib.regroup_launch(regs.data_ptr(), n, regs.shape[1], n_instr,
+                            scr.chunk, scr.keys.data_ptr(),
+                            scr.counts.data_ptr(), scr.perm.data_ptr(),
+                            stream)
+    if rc != 0:
+        raise RuntimeError(f"regroup launch failed: CUDA error {rc} "
+                           f"({lib.turbo_error_string(rc).decode()})")
+    regroup.launches += 1
+    return scr.perm
+
+
+regroup.launches = 0
+
+
+def warp_starts(regs: torch.Tensor, n_instr: int, tile: int,
+                order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(running warps, the sum over them of their distinct start pcs) of a
+    launch of ``regs`` at ``tile`` instances a block, slot s stepping row
+    ``order[s]`` (row s without an order), on the device: a warp is 32
+    consecutive slots of a block, running when one of its rows is."""
+    key = _regroup_key(regs, n_instr)
+    if order is not None:
+        key = key[order.long()]
+    n = key.shape[0]
+    blocks, lanes = -(-n // tile), -(-tile // 32) * 32
+    slot = torch.arange(n, device=key.device)
+    grid = torch.full((blocks, lanes), n_instr, dtype=key.dtype,
+                      device=key.device)
+    grid[slot // tile, slot % tile] = key
+    warps = grid.view(-1, 32)
+    run = warps < n_instr
+    lower = torch.ones(32, 32, dtype=torch.bool,
+                       device=key.device).tril(-1)
+    seen = ((warps[:, :, None] == warps[:, None, :]) & lower).any(dim=2)
+    return torch.stack([run.any(dim=1).sum(), (run & ~seen).sum()])
+
+
+def launch_order(tables: StepTables, regs: torch.Tensor, tile: int,
+                 sms: int) -> Optional[torch.Tensor]:
+    """The row order of a launch over ``regs`` at ``tile`` instances a
+    block on a card of ``sms`` SMs: ``regroup``'s permutation where
+    ``regroups`` says so (counted as ``turbo.regroups``), else None (slot s
+    steps row s). While ``EVENTS`` records, and only then, it also reads
+    back ``warp_starts`` of that order (through ``host_sync``) into the
+    counters ``turbo.warps`` and ``turbo.warp_pcs``."""
+    order = None
+    if regroups(regs.shape[0], tile, sms):
+        order = regroup(tables, regs)
+        EVENTS.count("turbo.regroups")
+    if EVENTS.recorded is not None:
+        warps, pcs = host_sync(warp_starts(regs, tables.host.n_instr, tile,
+                                           order).tolist)
+        EVENTS.count("turbo.warps", warps)
+        EVENTS.count("turbo.warp_pcs", pcs)
+    return order
+
+
 def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
     """``k_steps`` VM steps on every RUNNING lane of ``batch`` (a
     ``TurboBatch`` of regs (N, REGW) int32, sbuf (R, N, W) uint8, out
     (N, OW) uint8, meta (M, N, 3E) int32), in place; returns ``batch``.
     On the card, one block per tile of ``launch_plan`` (at most ``tile``
-    instances a block)."""
+    instances a block), in ``launch_order``."""
     _check(tables, batch)
     regs, sbuf, out, meta = batch
     if regs.device.type == "cpu":
@@ -350,9 +498,11 @@ def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
     lib = load()
     with torch.cuda.device(regs.device):
         plan = launch_plan(tables, batch, tile)
+        order = launch_order(tables, regs, plan.tile, sm_count(regs.device))
         rc = lib.turbo_step_launch(
             tables.flat.data_ptr(), tables.lits.data_ptr(), regs.data_ptr(),
-            sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(), regs.shape[0],
+            sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(),
+            None if order is None else order.data_ptr(), regs.shape[0],
             regs.shape[1], sbuf.shape[2], out.shape[1], int(k_steps),
             plan.c_fields, len(plan.c_fields),
             torch.cuda.current_stream(regs.device).cuda_stream)

@@ -2,7 +2,9 @@
 ``count`` and ``recording``) on the general step and the turbo engine's
 ``load_batch`` and launch, on the CPU: off it records nothing and changes
 nothing; on, its spans nest as the step does, its counters count what the
-step did, and its clock is ``time.time_ns``'s."""
+step did, and its clock is ``time.time_ns``'s. The turbo launch's order
+(``ops/turbo_step.py`` ``launch_order``) counts its regroups, and only
+while recording reads back its warps' start pcs."""
 
 import ast
 import pathlib
@@ -17,6 +19,7 @@ from interpolation_engine_tpu_torch._shared import (compile_program, json5,
                                                      vm_config)
 from interpolation_engine_tpu_torch.core import events
 from interpolation_engine_tpu_torch.core.events import EVENTS
+from interpolation_engine_tpu_torch.ops import turbo_step as ts
 from interpolation_engine_tpu_torch.vm import state as vs
 from interpolation_engine_tpu_torch.vm import syncs
 from interpolation_engine_tpu_torch.vm.driver import DeviceRunner
@@ -158,6 +161,47 @@ def test_load_batch_and_launch_spans(turbo):
     assert names.count("turbo.launch") == 2
 
 
+@pytest.fixture
+def sync_calls(monkeypatch):
+    """The launch order's calls of ``host_sync``, made as before."""
+    calls = []
+
+    def counted(fn, *args, **kw):
+        calls.append(fn)
+        return syncs.host_sync(fn, *args, **kw)
+    monkeypatch.setattr(ts, "host_sync", counted)
+    return calls
+
+
+def test_the_launch_order_counts_only_as_it_should(turbo, sync_calls):
+    """``turbo.regroups`` once a regrouped launch; ``turbo.warps`` and
+    ``turbo.warp_pcs`` (read back through ``host_sync``) on every launch
+    while recording; with the recorder off, no read back at all. Twelve
+    rows at 4 a block are 3 blocks: over one SM's wave of
+    ``BLOCKS_PER_SM`` = 2, under two SMs'."""
+    batch = turbo.load_batch([dict(STATE, order_index=t) for t in TASKS])
+    n_instr = turbo.tables.host.n_instr
+    order = ts.launch_order(turbo.tables, batch.regs, 4, sms=1)
+    assert order is not None and not sync_calls
+    assert ts.launch_order(turbo.tables, batch.regs, 4, sms=2) is None
+    assert EVENTS.recorded is None and not sync_calls
+    for sms, regrouped in ((1, True), (2, False)):
+        with EVENTS.recording() as rec:
+            got = ts.launch_order(turbo.tables, batch.regs, 4, sms=sms)
+        want = ts.warp_starts(batch.regs, n_instr, 4, got).tolist()
+        assert rec.counters == dict(
+            {"turbo.warps": want[0], "turbo.warp_pcs": want[1],
+             syncs.COUNTER: 1},
+            **({"turbo.regroups": 1} if regrouped else {}))
+        assert [s[0] for s in rec.spans] == [syncs.SPAN]
+    assert len(sync_calls) == 2
+    # rows at 10 pcs, 3 warps: row order starts them at more pcs a warp
+    row_order = ts.warp_starts(batch.regs, n_instr, 4).tolist()
+    grouped = ts.warp_starts(batch.regs, n_instr, 4, order).tolist()
+    assert row_order[0] == grouped[0] == 3
+    assert grouped[1] < row_order[1]
+
+
 def test_a_span_is_on_the_time_ns_clock(turbo):
     states = [dict(STATE, order_index=t) for t in TASKS]
     with EVENTS.recording() as rec:
@@ -241,6 +285,23 @@ def syncs_outside_host_sync(tree) -> list:
 
     visit(tree, "")
     return bare
+
+
+# the turbo launch's path on a card (ops/turbo_step.py)
+TURBO_LAUNCH = {"turbo_step", "_check", "launch_plan", "tile_plan",
+                "sm_count", "regroups", "launch_order", "regroup",
+                "_regroup_key", "warp_starts"}
+
+
+def test_the_turbo_launch_syncs_only_through_host_sync():
+    """No call on the turbo launch's path waits on the card outside
+    ``host_sync`` (the launch order's read back while recording)."""
+    tree = ast.parse((ROOT / "ops/turbo_step.py").read_text())
+    funcs = [node for node in tree.body if isinstance(node, ast.FunctionDef)
+             and node.name in TURBO_LAUNCH]
+    assert {f.name for f in funcs} == TURBO_LAUNCH
+    bare = syncs_outside_host_sync(ast.Module(body=funcs, type_ignores=[]))
+    assert not bare, f"syncs outside host_sync: {bare}"
 
 
 @pytest.mark.parametrize("rel", SYNC_MODULES)

@@ -16,6 +16,7 @@ garbage and a guard past its end must stay untouched. The result must equal
 """
 
 import ctypes
+import functools
 import random
 import shutil
 import subprocess
@@ -91,6 +92,7 @@ def regions(plan) -> dict:
     spans = {"prog": (0, ts.PROG_BYTES),
              "flat": (plan.flat_off, plan.flat_bytes),
              "lits": (plan.lits_off, plan.lits_bytes),
+             "idx": (plan.idx_off, 4 * t),
              "regs": (plan.regs_off, t * plan.regs_is),
              "meta": (plan.meta_off, plan.planes * plan.meta_ps),
              "sbuf": (plan.sbuf_off, plan.rows * plan.sbuf_ps),
@@ -275,28 +277,30 @@ static void copy_async(void* s, const void* g, int bytes) {
 static void copy_async_wait() {}
 #include "turbo_step.cu"
 
-// The kernel's launch, block by block of MAX_TILE threads; in a block each
-// phase runs for every thread before the next one starts, as the kernel's
-// barriers order them.
+// The kernel's launch, block by block of MAX_TILE threads, tile slot s
+// stepping row perm[s] (perm null: row s); in a block each phase runs for
+// every thread before the next one starts, as the kernel's barriers order
+// them.
 // 0: done; -1: arguments refused; -2: a block wrote past its shared memory.
 extern "C" int rehearse(const int* flat, const uint8_t* lits, int* regs,
-                        uint8_t* sbuf, uint8_t* out, int* meta, int n,
-                        int regw, int width, int out_width, int k_steps,
-                        const int* plan, int plan_len) {
+                        uint8_t* sbuf, uint8_t* out, int* meta,
+                        const int* perm, int n, int regw, int width,
+                        int out_width, int k_steps, const int* plan,
+                        int plan_len) {
   if (n <= 0 || k_steps <= 0) return 0;
   Args a;
-  if (!make_args(&a, flat, lits, regs, sbuf, out, meta, n, regw, width,
-                 out_width, k_steps, plan, plan_len))
+  if (!make_args(&a, flat, lits, regs, sbuf, out, meta, perm, n, regw,
+                 width, out_width, k_steps, plan, plan_len))
     return -1;
   const int T = a.tl.tile, nt = MAX_TILE, guard = 64;
   const int size = a.tl.smem + guard;
   uint8_t* sm = (uint8_t*)aligned_alloc(16, (size + 15) / 16 * 16);
   int rc = 0;
   for (int b = 0; b * T < n && rc == 0; ++b) {
-    bool any = false;
-    for (int t = 0; t < nt; ++t) any = any || running_at_entry(a, b, t);
-    if (!any) continue;
     memset(sm, 0xA5, size);
+    bool any = false;
+    for (int t = 0; t < nt; ++t) any = running_at_entry(a, b, t, sm) || any;
+    if (!any) continue;
     for (int t = 0; t < nt; ++t) stage_in(a, b, t, nt, sm);
     for (int t = 0; t < nt; ++t) run(a, b, t, sm);
     for (int t = 0; t < nt; ++t) stage_out(a, b, t, nt, sm);
@@ -323,17 +327,19 @@ def rehearsal(tmp_path_factory):
                    capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rehearse.argtypes = [p] * 6 + [i] * 5 + [ctypes.POINTER(i), i]
+    lib.rehearse.argtypes = [p] * 7 + [i] * 5 + [ctypes.POINTER(i), i]
     lib.rehearse.restype = i
     return lib
 
 
-def rehearse(lib, tables, batch, k, plan):
+def rehearse(lib, tables, batch, k, plan, perm=None):
     regs, sbuf, out, meta = batch
     vals = astuple(plan)
     rc = lib.rehearse(tables.flat.data_ptr(), tables.lits.data_ptr(),
                       regs.data_ptr(), sbuf.data_ptr(), out.data_ptr(),
-                      meta.data_ptr(), regs.shape[0], regs.shape[1],
+                      meta.data_ptr(),
+                      None if perm is None else perm.data_ptr(),
+                      regs.shape[0], regs.shape[1],
                       sbuf.shape[2], out.shape[1], k,
                       (ctypes.c_int * len(vals))(*vals), len(vals))
     assert rc == 0
@@ -351,11 +357,14 @@ def spread(eng, batch, seed=0):
                 dtype=torch.int32)
 
 
-def hold(lib, eng, batch, k, launches, plan):
-    """The rehearsed kernel == the plain version after every launch."""
+def hold(lib, eng, batch, k, launches, plan, order=None):
+    """The rehearsed kernel == the plain version after every launch; tile
+    slot s steps row ``order(batch)[s]`` (taken before each launch), or
+    row s without an order."""
     kern = type(batch)(*(t.clone() for t in batch))
     for launch in range(launches):
-        rehearse(lib, eng.tables, kern, k, plan)
+        perm = None if order is None else order(kern)
+        rehearse(lib, eng.tables, kern, k, plan, perm)
         ts.turbo_step_reference(eng.tables, batch, k)
         for name, a, b in zip(batch._fields, kern, batch):
             assert torch.equal(a, b), (launch, name)
@@ -385,32 +394,45 @@ def test_rehearsed_kernel_equals_plain(name, rehearsal):
                                                    tile=16))
 
 
-@pytest.mark.parametrize("n", ["1", "T-1", "T+1", "3T+5"])
-def test_rehearsed_ragged_tiles(n, rehearsal):
+RAGGED = ["1", "T-1", "T+1", "3T+5"]
+
+
+def ragged_case(n):
     eng = engine("adventure")
     plan = ts.tile_plan(eng.tables, eng.make_batch(1), tile=13)
     T = plan.tile
     rows = {"1": 1, "T-1": T - 1, "T+1": T + 1, "3T+5": 3 * T + 5}[n]
     batch = eng.make_batch(rows)
     spread(eng, batch, seed=rows)
-    hold(rehearsal, eng, batch, 16, 3, plan)
+    return eng, batch, 16, 3, plan
 
 
-@pytest.mark.parametrize("name", ["adventure_w512", "adventure_w80",
-                                  "list_literal", "spine", "adventure_w2048",
-                                  "promoted_w768"])
-def test_rehearsed_shapes(name, rehearsal):
-    """Width 512 (literals left in device memory), width 80 with 32-byte
-    elements (row tails unused), a list literal's scratch row, the default
-    tile, and the promoted siblings' widths 2048 (literals in device
-    memory, 5 instances a block) and 768."""
+@pytest.mark.parametrize("n", RAGGED)
+def test_rehearsed_ragged_tiles(n, rehearsal):
+    hold(rehearsal, *ragged_case(n))
+
+
+SHAPED = ["adventure_w512", "adventure_w80", "list_literal", "spine",
+          "adventure_w2048", "promoted_w768"]
+
+
+def shape_case(name):
     eng = engine(name)
     batch = eng.make_batch(50)
     spread(eng, batch)
     plan = ts.tile_plan(eng.tables, batch)
     assert (plan.lits_off < 0) == (name in ("adventure_w512",
                                             "adventure_w2048"))
-    hold(rehearsal, eng, batch, 16, 3, plan)
+    return eng, batch, 16, 3, plan
+
+
+@pytest.mark.parametrize("name", SHAPED)
+def test_rehearsed_shapes(name, rehearsal):
+    """Width 512 (literals left in device memory), width 80 with 32-byte
+    elements (row tails unused), a list literal's scratch row, the default
+    tile, and the promoted siblings' widths 2048 (literals in device
+    memory, 5 instances a block) and 768."""
+    hold(rehearsal, *shape_case(name))
 
 
 @pytest.mark.parametrize("width,size", [(768, 600), (2048, 1800)])
@@ -441,19 +463,22 @@ def test_rehearsed_smaller_cards(card, rehearsal):
     hold(rehearsal, eng, batch, 16, 3, plan)
 
 
-def test_rehearsed_odd_widths_stage_bytes(rehearsal):
-    """Widths that are no multiple of 4 stage byte by byte."""
+def odd_widths_case():
     eng = TurboEngine(compile_src(bench.BENCH_PROGRAM), TurboConfig(
         width=50, out_width=70, k_steps=8), device="cpu")
     batch = eng.make_batch(30)
     spread(eng, batch)
-    hold(rehearsal, eng, batch, 8, 3, ts.tile_plan(eng.tables, batch,
-                                                   tile=8))
+    return eng, batch, 8, 3, ts.tile_plan(eng.tables, batch, tile=8)
 
 
-def test_rehearsed_parked_and_done_tiles_are_left_alone(rehearsal):
-    """The first tiles hold no RUNNING instance: the kernel skips them and
-    leaves every byte of them as it was."""
+def test_rehearsed_odd_widths_stage_bytes(rehearsal):
+    """Widths that are no multiple of 4 stage byte by byte."""
+    hold(rehearsal, *odd_widths_case())
+
+
+def parked_and_done_case():
+    """The first 32 rows PARKED and DONE with seeded garbage, the rest
+    RUNNING from a fresh start, at 16 instances a block."""
     eng = engine("adventure")
     plan = ts.tile_plan(eng.tables, eng.make_batch(1), tile=16)
     batch = seeded(eng.make_batch(5 * 16), seed=3)
@@ -467,14 +492,27 @@ def test_rehearsed_parked_and_done_tiles_are_left_alone(rehearsal):
             t[32:] = f[32:]
         else:
             t[:, 32:] = f[:, 32:]
+    return eng, batch, 8, 2, plan
+
+
+def hold_parked_and_done(lib, kind=None):
+    """The parked and done rows keep every byte, in any row order
+    (``row_order``'s ``kind``, or row s in slot s)."""
+    eng, batch, k, launches, plan = parked_and_done_case()
     before = type(batch)(*(t.clone() for t in batch))
-    kern = hold(rehearsal, eng, batch, 8, 2, plan)
+    order = kind and row_order(kind, eng, batch.regs.shape[0])
+    kern = hold(lib, eng, batch, k, launches, plan, order)
     assert torch.equal(kern.regs[:32], before.regs[:32])
     assert torch.equal(kern.sbuf[:, :32], before.sbuf[:, :32])
 
 
-@pytest.mark.parametrize("idx", range(12))
-def test_rehearsed_random_programs(idx, rehearsal):
+def test_rehearsed_parked_and_done_tiles_are_left_alone(rehearsal):
+    """The first tiles hold no RUNNING instance: the kernel skips them and
+    leaves every byte of them as it was."""
+    hold_parked_and_done(rehearsal)
+
+
+def random_program_case(idx):
     from interpolation_engine_tpu_torch._shared import json5
     program = (tp.random_scalar_program(random.Random(7000 + idx))
                if idx < 6 else tp.random_program(random.Random(9000 + idx)))
@@ -483,5 +521,66 @@ def test_rehearsed_random_programs(idx, rehearsal):
                       device="cpu")
     batch = eng.make_batch(24)
     spread(eng, batch, seed=idx)
-    hold(rehearsal, eng, batch, 2, 8, ts.tile_plan(eng.tables, batch,
-                                                   tile=7))
+    return eng, batch, 2, 8, ts.tile_plan(eng.tables, batch, tile=7)
+
+
+@pytest.mark.parametrize("idx", range(12))
+def test_rehearsed_random_programs(idx, rehearsal):
+    hold(rehearsal, *random_program_case(idx))
+
+
+# ---- the rehearsal through a row order ---------------------------------------
+
+# the cases above, by name: (engine, batch, k, launches, plan)
+CASES = dict(
+    {f"random_{i}": functools.partial(random_program_case, i)
+     for i in range(12)},
+    **{f"ragged_{n}": functools.partial(ragged_case, n) for n in RAGGED},
+    **{f"shape_{name}": functools.partial(shape_case, name)
+       for name in SHAPED},
+    odd_widths=odd_widths_case)
+ORDERS = ["reversed", "random", "regroup"]
+
+
+def row_order(kind, eng, n):
+    """Before each launch, the slots' rows: the rows reversed, a seeded
+    shuffle (both fixed), or the regroup's order of the batch as it then
+    stands (``regroup_reference``, which the card's regroup equals bit for
+    bit)."""
+    if kind == "reversed":
+        perm = torch.arange(n - 1, -1, -1, dtype=torch.int32)
+    elif kind == "random":
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(n))
+        perm = perm.to(torch.int32)
+    else:
+        return lambda batch: ts.regroup_reference(batch.regs,
+                                                  eng.tables.host.n_instr)
+    return lambda batch: perm
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_rehearsed_through_a_row_order(case, order, rehearsal):
+    """Each case above with tile slot s stepping row perm[s]: the rows
+    reversed, shuffled, or in the regroup's order (RUNNING rows by pc, the
+    parked and done last), which moves at every launch. Rows stay where
+    they are in the batch, so after every launch the batch equals the
+    plain version's."""
+    eng, batch, k, launches, plan = CASES[case]()
+    hold(rehearsal, eng, batch, k, launches, plan,
+         row_order(order, eng, batch.regs.shape[0]))
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_rehearsed_parked_and_done_through_a_row_order(order, rehearsal):
+    """Parked and done rows among the running ones, in each order; in the
+    regroup's they fill the last tiles, which the kernel skips."""
+    hold_parked_and_done(rehearsal, order)
+
+
+def test_the_regroup_order_puts_the_parked_and_done_tiles_last():
+    eng, batch, *_, plan = parked_and_done_case()
+    perm = ts.regroup_reference(batch.regs, eng.tables.host.n_instr)
+    status = batch.regs[perm.long(), C_STATUS].view(-1, plan.tile)
+    assert bool((status[:3] == 0).all())
+    assert bool((status[3:] != 0).all())
