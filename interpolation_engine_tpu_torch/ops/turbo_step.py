@@ -338,7 +338,9 @@ def tile_plan(tables: StepTables, batch, tile: int = 128,
 def launch_plan(tables: StepTables, batch, tile: int = 128) -> TilePlan:
     """The plan ``turbo_step`` launches ``batch`` with on its card:
     ``tile_plan`` for the card's shared memory, made once for each shape of
-    batch and kept with ``tables`` (which live on that card)."""
+    batch and kept with ``tables`` (which live on that card). Each plan
+    made is counted: ``turbo.tile_rows`` its T, ``turbo.lits_in_device`` 1
+    where the literals stay in device memory."""
     regs, sbuf, out, meta = batch
     key = (tuple(regs.shape), tuple(sbuf.shape), out.shape[1],
            tuple(meta.shape), tile)
@@ -346,7 +348,21 @@ def launch_plan(tables: StepTables, batch, tile: int = 128) -> TilePlan:
     if plan is None:
         plan = tables.plans[key] = tile_plan(
             tables, batch, tile, shared_memory(regs.device))
+        EVENTS.count("turbo.tile_rows", plan.tile)
+        EVENTS.count("turbo.lits_in_device", int(plan.lits_off < 0))
     return plan
+
+
+def staged_bytes(plan: TilePlan, batch) -> int:
+    """The batch bytes a launch of ``plan`` stages in and back out, by
+    host arithmetic from the shapes: each row's registers, meta planes,
+    string rows and output, twice (a tile none of whose rows runs stages
+    nothing; this counts it all the same)."""
+    regs, sbuf, out, _ = batch
+    n, regw = regs.shape
+    row = (4 * regw + 4 * plan.planes * plan.cells + plan.rows * sbuf.shape[2]
+           + out.shape[1])
+    return 2 * n * row
 
 
 @functools.cache
@@ -499,6 +515,8 @@ def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
     with torch.cuda.device(regs.device):
         plan = launch_plan(tables, batch, tile)
         order = launch_order(tables, regs, plan.tile, sm_count(regs.device))
+        if EVENTS.recorded is not None:
+            EVENTS.count("turbo.staged_bytes", staged_bytes(plan, batch))
         rc = lib.turbo_step_launch(
             tables.flat.data_ptr(), tables.lits.data_ptr(), regs.data_ptr(),
             sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(),

@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from .._shared import (compile_program, context, events, executor,
-                       host_interp, io_manager, isa, json5, loader, runtime,
-                       vm_config)
+                       host_interp, io_manager, isa, json5, loader, planner,
+                       runtime, vm_config)
 from .._shared import lanering as lanering_mod
 from ..core.persistence import save_program
 from ..io import tts as tts_mod
@@ -52,7 +52,8 @@ from ..ops.interp_kernel import ERR_CAPACITY
 from ..parallel.mesh import ShardedVMBatch, batched_run_sharded
 from . import state as vs
 from .step import GeneralStep
-from .turbo import InstanceResult, NotTurbo, TurboConfig, TurboEngine
+from .turbo import (InstanceResult, NotTurbo, TurboConfig, TurboEngine,
+                    base_config)
 
 RUNNING, PARKED = vm_config.RUNNING, vm_config.PARKED
 T_NEW, T_READY, T_WAIT = (vm_config.T_NEW, vm_config.T_READY,
@@ -663,10 +664,12 @@ def run_program_on_device(filepath: str, args: list, io, batch: int = 1,
     every batch to the general engine. Otherwise every program the turbo
     planner accepts runs on the turbo engine at any batch: the JAX package
     tries it only from 256 instances up, because its TPU compile takes
-    minutes, but this kernel builds in seconds. A batch whose instance
-    does not fit a block's shared memory on the card is ``NotTurbo``, like
-    a program the planner rejects: the general engine runs it on the same
-    card. A kernel that fails fails the run: nothing falls back to another
+    minutes, but this kernel builds in seconds. Without ``tcfg`` its
+    widths are sized from the program's literals (``base_config``: width
+    128, 512 or 2048), so a literal up to 2048 bytes stays on the turbo
+    engine. A batch whose instance does not fit a block's shared memory on
+    the card is ``NotTurbo``, like a program the planner rejects: the
+    general engine runs it on the same card. A kernel that fails fails the run: nothing falls back to another
     engine."""
     context.CTX.program_dir = os.path.dirname(os.path.abspath(filepath))
     program, _state = loader.load(filepath)
@@ -684,8 +687,10 @@ def run_program_on_device(filepath: str, args: list, io, batch: int = 1,
     engine = None
     if turbo_env != "0":
         try:
-            engine = TurboEngine(compiled, tcfg, io_factory=lambda i: io,
-                                 device=device)
+            plan = planner.plan_turbo(compiled)
+            engine = TurboEngine(compiled, tcfg or base_config(plan),
+                                 io_factory=lambda i: io, device=device,
+                                 plan=plan)
         except NotTurbo:
             engine = None
     if engine is not None:

@@ -106,6 +106,25 @@ class TurboConfig:
     elem_width: int = 32  # bytes per list element
 
 
+def base_config(plan) -> TurboConfig:
+    """The base TurboConfig for ``plan``: the first of ``TurboConfig()``
+    and its widenings by 4 (width, out_width and elem_width, as the
+    promotion sibling widens) whose width holds the plan's longest byte
+    literal: widths 128, 512 and 2048, ``MAX_WIDTH``. A literal past
+    ``MAX_WIDTH`` raises ``NotTurbo``. A widened config is counted as
+    ``turbo.base_width`` (its width)."""
+    lits = _LitTable(MAX_WIDTH)
+    lits.collect(plan.instrs)
+    longest = int(lits.lengths().max())
+    cfg = TurboConfig()
+    while cfg.width < longest:
+        cfg = TurboConfig(width=4 * cfg.width, out_width=4 * cfg.out_width,
+                          elem_width=4 * cfg.elem_width)
+    if cfg.width > TurboConfig.width:
+        events.EVENTS.count("turbo.base_width", cfg.width)
+    return cfg
+
+
 class _Cols:
     """Register-column layout, identical to the JAX package's ``_Cols``
     (``interpolation_engine_tpu/vm/turbo.py:140``):

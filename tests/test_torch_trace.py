@@ -4,7 +4,9 @@
 nothing; on, its spans nest as the step does, its counters count what the
 step did, and its clock is ``time.time_ns``'s. The turbo launch's order
 (``ops/turbo_step.py`` ``launch_order``) counts its regroups, and only
-while recording reads back its warps' start pcs."""
+while recording reads back its warps' start pcs. Each tile plan counts its
+T and where its literals stay, each launch on a card the bytes it stages,
+and the entry the base width it sizes for a program."""
 
 import ast
 import pathlib
@@ -290,7 +292,7 @@ def syncs_outside_host_sync(tree) -> list:
 # the turbo launch's path on a card (ops/turbo_step.py)
 TURBO_LAUNCH = {"turbo_step", "_check", "launch_plan", "tile_plan",
                 "sm_count", "regroups", "launch_order", "regroup",
-                "_regroup_key", "warp_starts"}
+                "_regroup_key", "warp_starts", "staged_bytes"}
 
 
 def test_the_turbo_launch_syncs_only_through_host_sync():
@@ -327,3 +329,147 @@ def f_reference(t):
 """
     assert [ln for _, ln in syncs_outside_host_sync(ast.parse(src))] == [
         3, 4, 5]
+
+
+# ---- the wide-row counters: the tile, the literals, the staged bytes and
+# the base width the entry sizes ---------------------------------------------
+
+@pytest.fixture(scope="module")
+def wide():
+    """The prompt-chain program's engine at the widths the entry sizes
+    for it (2048-byte slots) and 12 of its rows."""
+    from portbench import run
+    from portbench.programs import prompt_chain
+    from interpolation_engine_tpu_torch.vm.turbo import base_config
+    from interpolation_engine_tpu_torch._shared import planner
+    text = prompt_chain.source()
+    program = json5.loads(loader.add_line_numbers(text))
+    validator.validate_program(program)
+    plan = planner.plan_turbo(compile_program(program))
+    eng = TurboEngine(plan.compiled, base_config(plan), device="cpu",
+                      plan=plan)
+    traffic = dict(run.load_cell("prompt-chain")["traffic"],
+                   strata={"room": [0, 1], "at": [1, 5], "hlen": [3, 9]},
+                   variants_per_stratum=1)
+    states = run.start_states(traffic, text, 5)
+    return eng, eng.load_batch(states + states[:4])
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    """``launch_plan`` sizes its tiles for an H100's shared memory."""
+    monkeypatch.setattr(ts, "shared_memory", lambda device: ts.H100_SHARED)
+
+
+@pytest.mark.parametrize("which", ["wide", "narrow"])
+def test_a_plan_counts_its_tile_and_where_its_literals_stay(
+        which, wide, turbo, h100):
+    """``turbo.tile_rows`` (T) and ``turbo.lits_in_device`` once for each
+    plan ``launch_plan`` makes, not for a plan it keeps: at 2048-byte
+    slots T = 3 and the literals stay in device memory; at 64 they are
+    staged."""
+    if which == "wide":
+        eng, batch = wide
+        want_t, want_lits = 3, 1
+    else:
+        eng = turbo
+        batch = turbo.load_batch([dict(STATE, order_index=t)
+                                  for t in TASKS])
+        want_t, want_lits = 8, 0
+    eng.tables.plans.clear()
+    with EVENTS.recording() as rec:
+        plan = ts.launch_plan(eng.tables, batch, eng.tcfg.tile)
+        assert ts.launch_plan(eng.tables, batch, eng.tcfg.tile) is plan
+    assert plan == ts.tile_plan(eng.tables, batch, eng.tcfg.tile,
+                                ts.H100_SHARED)
+    assert (plan.tile, int(plan.lits_off < 0)) == (want_t, want_lits)
+    assert rec.counters == {"turbo.tile_rows": want_t,
+                            "turbo.lits_in_device": want_lits}
+    assert not rec.spans
+
+
+def test_a_plan_made_with_the_recorder_off_counts_nothing(wide, h100):
+    eng, batch = wide
+    eng.tables.plans.clear()
+    ts.launch_plan(eng.tables, batch, eng.tcfg.tile)
+    assert EVENTS.recorded is None
+    with EVENTS.recording() as rec:
+        ts.launch_plan(eng.tables, batch, eng.tcfg.tile)
+    assert rec.counters == {}
+
+
+def test_staged_bytes_are_every_row_in_and_back_out(wide, turbo):
+    """Host arithmetic from the plan and the shapes: the batch's bytes
+    twice (regs, meta planes, string rows, output), nothing read back."""
+    for eng, batch in (wide, (turbo, turbo.make_batch(12))):
+        plan = ts.tile_plan(eng.tables, batch, eng.tcfg.tile,
+                            ts.H100_SHARED)
+        want = 2 * sum(t.numel() * t.element_size() for t in batch)
+        assert ts.staged_bytes(plan, batch) == want
+
+
+def test_the_wide_batch_is_29328_bytes_an_instance(wide):
+    eng, batch = wide
+    plan = ts.tile_plan(eng.tables, batch, eng.tcfg.tile, ts.H100_SHARED)
+    assert ts.staged_bytes(plan, batch) == 2 * 12 * 29_328
+
+
+@pytest.mark.parametrize("n,want", [(40, None), (129, 512), (600, 2048)])
+def test_the_entry_counts_the_base_width_it_sizes(tmp_path, capsys, n,
+                                                   want):
+    """``run_program_on_device`` without ``tcfg`` on a program whose
+    longest literal is n bytes: ``turbo.base_width`` once where it widens
+    the config, and the launches on the turbo engine; a program within 128
+    bytes counts no width."""
+    from interpolation_engine_tpu_torch._shared import io_manager
+    from interpolation_engine_tpu_torch.vm.driver import (
+        run_program_on_device)
+    path = tmp_path / "p.json5"
+    path.write_text("""
+{
+    default_state: {order_index: 1, inserts: {}},
+    order: [{cmd:'print', text:'%s'}],
+    named_tasks: {}, save_states: {},
+}
+""" % ("x" * n))
+    io = io_manager.IOManager(io_manager.BufferBackend())
+    with EVENTS.recording() as rec:
+        assert run_program_on_device(str(path), [], io, batch=2,
+                                     device="cpu") == 0
+    assert capsys.readouterr().out == "x" * n + "\n"
+    assert rec.counters.get("turbo.base_width") == want
+    assert any(s[0] == "turbo.launch" for s in rec.spans)
+
+
+@pytest.mark.cuda
+def test_a_launch_on_the_card_counts_its_staged_bytes(wide):
+    """On a card: ``turbo.staged_bytes`` once a ``turbo_step`` launch while
+    recording, its plan's counters once; off, ``staged_bytes`` is never
+    called."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng, cpu_batch = wide
+    dev = torch.device("cuda")
+    tables = ts.StepTables.on(eng.tables.host, dev)
+    batch = type(cpu_batch)(*(t.to(dev) for t in cpu_batch))
+    calls = []
+    real = ts.staged_bytes
+
+    def counted(plan, b):
+        calls.append(1)
+        return real(plan, b)
+    ts.staged_bytes = counted
+    try:
+        ts.turbo_step(tables, batch, 4, eng.tcfg.tile)
+        assert not calls
+        with EVENTS.recording() as rec:
+            for _ in range(3):
+                ts.turbo_step(tables, batch, 4, eng.tcfg.tile)
+        torch.cuda.synchronize()
+    finally:
+        ts.staged_bytes = real
+    plan = next(iter(tables.plans.values()))
+    assert len(calls) == 3
+    assert rec.counters["turbo.staged_bytes"] == 3 * real(plan, batch)
+    assert "turbo.tile_rows" not in rec.counters   # the plan was kept
+    assert plan.lits_off < 0
