@@ -2,7 +2,7 @@
 """Drive the PyTorch port (``interpolation_engine_tpu_torch``) on one CUDA
 card and check it.
 
-    python3 chip_smoke.py [--seed N]   # phases 1-21 and the result lines
+    python3 chip_smoke.py [--seed N]   # phases 1-22 and the result lines
     python3 chip_smoke.py --turn TREE  # phase 13, the chat filter's and
                                        # M and W's times with TREE's
                                        # package
@@ -16,8 +16,9 @@ and prints no result):
    ``turbo_step_reference`` run the same launches on the card and must leave
    bit-identical regs, sbuf, out and meta after every launch; then the same
    at the widths of promoted siblings: adventure at 2048 bytes, and rows of
-   a sibling as promotion builds them at 768 and 2048; then the step
-   kernel's attributes (registers, local, static and dynamic shared bytes);
+   a sibling as promotion builds them at 768 and 2048; then the attributes
+   of the step kernel's two instances, one thread a row and a warp a row
+   (registers, local, static and dynamic shared bytes);
 2. the spine at the bench's size: 131,072 instances,
    ``TurboEngine.run_async`` to the end through the kernel; every instance
    DONE with the host engine's output; tasks/s of kernel and plain version
@@ -95,10 +96,11 @@ and prints no result):
 13. promotion: race-io at the bench's width-512 shape (width 512, elements
    of 128 bytes, output 512), 16,384 instances, where one instance in 16
    answers 1,000 bytes at turn 1: the fast path promotes those instances
-   mid-run into one sibling batch of width 2048, whose first kernel
-   launches are held bit for bit against the plain version; every instance
-   equal to the host with 47 steps; the sibling's tile and its ms per
-   launch (queued), beside the plain version's and its bound;
+   mid-run into one sibling batch of width 2048 (T = 5, a warp a row),
+   whose first kernel launches are held bit for bit against the plain
+   version; every instance equal to the host with 47 steps; the sibling's
+   tile and its ms per launch (queued), beside the plain version's and its
+   bound;
 14. the general engine's 11 opcodes past its first 19 (``unescape``,
    ``goto_map`` with template keys, ``math``, the list ops, ``replace_map``,
    ``delete``, ``delete_except``, ``random_choice``): the test program
@@ -189,7 +191,13 @@ and prints no result):
    to 33 bytes (some unsupported) against subjects up to 96 bytes, one in
    four ending in a newline, then on one shared pattern; each kernel equal
    to its plain version on every field of every row, then timed queued
-   beside its bound (the plain version at 131,072).
+   beside its bound (the plain version at 131,072);
+22. the ``prompt-chain`` cell's shape (portbench's configuration and
+   traffic): 131,072 rows resumed from the traffic's states drawn from
+   ``--seed``, 2048-byte slots, T = 3, each row stepped by a warp; the
+   first two launches of 32 steps held bit for bit against the plain
+   version, then the launch timed queued at K = 1 and 32 and the staging
+   alone, beside its bound.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -197,7 +205,11 @@ card asleep while the host queues the launches, so that it is the card's
 time alone. The host oracle is the port's own copy of the host runtime.
 The last two lines of standard output are one JSON object naming each kernel (the
 regroup's three kernels, ``csrc/regroup.cu``, as one entry) with its
-launches on its main path, its largest deviation from the plain version,
+launches on its main path (for the step kernel, those of phases 5, 13, 16
+and 20, and apart, in ``warp_launches``, those of them that stepped a row
+with a warp by the port's counter ``turbo.warp_row_launches``; phase 22's
+launches are checks and timings), its largest deviation from the plain
+version,
 its time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes it must move over 3.35 TB/s, or its
 operations over 67 TFLOP/s, whichever is larger; over several cards, the
@@ -317,6 +329,20 @@ def count_services(engines, counts: dict = None) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def warp_rows():
+    """Yields a dict whose ``"launches"``, once the block ends, is the
+    port's counter ``turbo.warp_row_launches`` over the block: the step
+    kernel's launches that stepped each row with a warp. Records the
+    port's spans and counters over the block, which adds a host sync to
+    each launch."""
+    from interpolation_engine_tpu_torch.core.events import EVENTS
+    got = {}
+    with EVENTS.recording() as rec:
+        yield got
+    got["launches"] = rec.counters.get("turbo.warp_row_launches", 0)
+
+
 def ring_run(eng, n: int):
     """``eng.run`` on n fresh instances to the end, timed to a synchronise
     of every card, with ``count_services``. Returns (final batch, seconds,
@@ -346,8 +372,14 @@ def clone(batch):
 
 
 def max_abs_diff(a, b) -> int:
+    """The largest difference of two batches' fields, 64M elements at a
+    time (a 2048-byte batch's bytes do not fit the card as int64 at
+    once)."""
+    chunk = 1 << 26
     return max((int((x.long() - y.long()).abs().max())
-                for x, y in zip(a, b) if x.numel()), default=0)
+                for xs, ys in zip(a, b) if xs.numel()
+                for x, y in zip(xs.flatten().split(chunk),
+                                ys.flatten().split(chunk))), default=0)
 
 
 def spread_slot(engine, batch, key: str, hi: int, gen) -> None:
@@ -380,25 +412,39 @@ def step_bound(tables, batch, steps: int) -> dict:
                  steps)
 
 
+def plan_lanes(plan) -> int:
+    """The lanes that step a row under ``plan``: 1 in a tree from before
+    the warp path (``--turn``), whose plan names no lane group."""
+    return getattr(plan, "lanes", 1)
+
+
 def tile_line(tables, batch, tile: int) -> str:
     """The step kernel's tile for this batch (``launch_plan``, the plan the
     wrapper launches with)."""
     from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
     plan = launch_plan(tables, batch, tile)
     where = "shared" if plan.lits_off >= 0 else "device"
-    return (f"tile T={plan.tile} instances, {plan.smem} bytes of dynamic "
-            f"shared memory a block, literals in {where} memory")
+    group = "a warp" if plan_lanes(plan) > 1 else "one thread"
+    return (f"tile T={plan.tile} instances, {group} a row, {plan.smem} "
+            f"bytes of dynamic shared memory a block, literals in {where} "
+            f"memory")
 
 
 def attributes_line() -> str:
+    """Both instances of the step kernel: one thread a row and a warp a
+    row."""
     from interpolation_engine_tpu_torch.ops.turbo_step import (
-        kernel_attributes)
-    a = kernel_attributes(0)
-    return (f"turbo_step_kernel attributes: {a['registers']} registers, "
-            f"{a['local_bytes']} local bytes per thread, "
+        WARP, kernel_attributes)
+    parts = []
+    for lanes in (1, WARP):
+        a = kernel_attributes(0, lanes)
+        parts.append(
+            f"turbo_step_kernel<{lanes}> attributes: {a['registers']} "
+            f"registers, {a['local_bytes']} local bytes per thread, "
             f"{a['static_shared_bytes']} static shared bytes, "
             f"{a['max_dynamic_shared_bytes']} dynamic shared bytes allowed, "
             f"at most {a['max_threads']} threads a block")
+    return "; ".join(parts)
 
 
 def timed_steps(eng) -> list:
@@ -738,10 +784,9 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     batch = eng.make_batch(n)
     events = timed_steps(eng)
     torch.cuda.synchronize()
-    turbo_step.launches = 0
-    turbo_step_reference.launches = 0
+    turbo_step.launches = turbo_step_reference.launches = 0
     regroup.launches = 0
-    with CheckedRegroup("phase 5") as groups:
+    with CheckedRegroup("phase 5") as groups, warp_rows() as warp:
         t0 = time.perf_counter()
         final = eng.run(batch)
         torch.cuda.synchronize()
@@ -768,7 +813,8 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
         f"the steps {kernel_s * 1e3:.3f} ms of it ({kernel_s / elapsed:.4f});"
         f" {groups.compared} regroups, each equal to its plain version "
         f"({groups.moved} not the identity)")
-    return {"launches": launches, "ms": t_kern / L * 1e3,
+    return {"launches": launches, "warp_launches": warp["launches"],
+            "ms": t_kern / L * 1e3,
             "plain_ms": t_ref / L * 1e3, "max_abs_err": worst,
             "regroup_launches": regroup.launches,
             "regroup_max_abs_err": groups.worst, **launch_bound}
@@ -1571,7 +1617,7 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager as iom
     from interpolation_engine_tpu_torch.ops.turbo_step import (
-        turbo_step, turbo_step_reference)
+        launch_plan, turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
         C_STEPS, DONE, TurboConfig, TurboEngine)
     src = bench.race_io_program(t_max=3)
@@ -1620,9 +1666,12 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
     turbo_step.launches = turbo_step_reference.launches = 0
     TurboEngine.step_fn = step_fn
     try:
-        final, elapsed, exact, _ = ring_run(eng, n)
+        with warp_rows() as warp:
+            final, elapsed, exact, _ = ring_run(eng, n)
     finally:
         TurboEngine.step_fn = make
+    # the ring's launches, before the sibling's are timed below
+    launches, warp_launches = turbo_step.launches, warp["launches"]
     promoted = list(range(0, n, every))
     if sorted(eng._escape_results) != promoted or exact != 0 or \
             sib["held"] != checked or \
@@ -1651,14 +1700,20 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
         f"{eng.ring_stats['escapes']} queued; its first {checked} kernel "
         f"launches bit-identical to the plain version; every instance DONE "
         f"equal to the host with 47 steps; {fast_split(eng)}, no exact "
-        f"service; {turbo_step.launches} kernel launches in {elapsed:.3f} s")
+        f"service; {launches} kernel launches in {elapsed:.3f} s, "
+        f"{warp_launches} of them the sibling's, a warp a row")
+    if plan_lanes(launch_plan(tables, first, wide.tile)) > 1 and \
+            warp_launches <= 0:
+        raise AssertionError("phase 13: the sibling stepped no row with a "
+                             "warp")
     log(f"phase 13 sibling step at width {wide.width}, {len(promoted)} "
         f"instances, first launch's state, K={K} [{card}]: kernel "
         f"{k_ms:.3f} ms/launch (queued), plain version {p_ms:.3f} ms/launch; "
         f"bound {sib_bound['bound_ms']:.4f} ms ({sib_bound['bound_by']}), "
         f"the kernel at {sib_bound['bound_ms'] / k_ms * 100:.1f} % of it; "
         f"{tile_line(tables, first, wide.tile)}")
-    return {"ring_s": elapsed, "sibling_ms": k_ms}
+    return {"ring_s": elapsed, "sibling_ms": k_ms, "launches": launches,
+            "warp_launches": warp_launches, "max_abs_err": sib["worst"]}
 
 
 def host_with_choice(src: str, tmp: str, pick: int) -> dict:
@@ -1983,15 +2038,15 @@ def phase16(card: str, tmp: str, n: int = 131_072,
         C_PARMODE, C_STEPS, DONE, TurboConfig, TurboEngine)
     tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
                        elem_width=32)   # phase 5's
-    launches = 0
+    launches = warp_launches = 0
     groups = {"launches": 0, "compared": 0, "moved": 0, "worst": 0}
 
     def counted_run(eng, batch):
-        nonlocal launches
+        nonlocal launches, warp_launches
         turbo_step.launches = turbo_step_reference.launches = 0
         regroup.launches = 0
         sync_all()
-        with CheckedRegroup("phase 16") as checked:
+        with CheckedRegroup("phase 16") as checked, warp_rows() as warp:
             t0 = time.perf_counter()
             final = eng.run(batch)
             sync_all()
@@ -2010,6 +2065,7 @@ def phase16(card: str, tmp: str, n: int = 131_072,
                 f"phase 16: {regroup.launches} regroups, {checked.compared} "
                 f"compared, over {turbo_step.launches} launches")
         launches += turbo_step.launches
+        warp_launches += warp["launches"]
         groups["launches"] += regroup.launches
         groups["compared"] += checked.compared
         groups["moved"] += checked.moved
@@ -2155,8 +2211,8 @@ def phase16(card: str, tmp: str, n: int = 131_072,
     log(f"phase 16 regroups [{card}]: {groups['compared']} over the three "
         f"runs, each equal to its plain version, {groups['moved']} not the "
         f"identity")
-    return {"launches": launches, "max_abs_err": worst,
-            "states": exported, "hosts": hosts,
+    return {"launches": launches, "warp_launches": warp_launches,
+            "max_abs_err": worst, "states": exported, "hosts": hosts,
             "regroup": {"launches": groups["launches"],
                         "max_abs_err": groups["worst"], "ms": group_ms,
                         "plain_ms": group_plain_ms,
@@ -2819,11 +2875,16 @@ def phase20(card: str, n: int = 131_072) -> dict:
                scan_mod.brace_scan_reference)
     for fn in kernels + (regroup,):
         fn.launches = 0
+    warp_launches = 0
     mw_reset()
     for workload, engine, env in BENCH_RUNS:
-        with bench_env(env):
+        # the turbo runs recorded, for their warp launches; the general
+        # engine launches no step kernel
+        with bench_env(env), (warp_rows() if engine == "turbo" else
+                              contextlib.nullcontext({})) as warp:
             t0 = time.perf_counter()
             run = bench.measure()
+        warp_launches += warp.get("launches", 0)
         check_bench_line(run.line, workload, engine, n)
         log(f"bench: {json.dumps(run.line)} ({card}; {env}, executed "
             f"{run.executed} in {run.elapsed:.3f} s, warm launch "
@@ -2878,7 +2939,8 @@ def phase20(card: str, n: int = 131_072) -> dict:
                            device="cuda")
     log(f"phase 20 adventure at width 512: "
         f"{tile_line(wide.tables, wide.make_batch(n), wide.tcfg.tile)}")
-    return {"step_launches": step_launches, "scan_launches": scan_launches,
+    return {"step_launches": step_launches, "warp_launches": warp_launches,
+            "scan_launches": scan_launches,
             "regroup_launches": regroup_launches}
 
 
@@ -3112,6 +3174,69 @@ def phase21(card: str) -> dict:
     return {"math": line["M flat"], "match": line["W shared"]}
 
 
+def phase22(card: str, n: int = 131_072, checked: int = 2) -> dict:
+    """The ``prompt-chain`` cell's shape (portbench's configuration and
+    traffic): ``n`` rows resumed from the traffic's states drawn from
+    ``--seed``, 2048-byte slots, T = 3, a warp a row. Its first ``checked``
+    launches held bit for bit against the plain version, then its launch
+    timed queued at K = 1 and 32 and the staging alone, beside its bound.
+    Returns its largest deviation and its time a launch at K = 32."""
+    import torch
+    from portbench import run
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        WARP, launch_plan, turbo_step, turbo_step_reference)
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        C_PC, C_STEPS, TurboConfig, TurboEngine)
+    spec = run.load_cell("prompt-chain")
+    text = run.program_text(spec["traffic"])
+    tcfg = TurboConfig(**spec["config"]["turbo_config"])
+    eng = TurboEngine(compile_src(text), tcfg, device="cuda")
+    states = run.start_states(spec["traffic"], text, SEED)
+    dealt = run.deal(torch, n, len(states), SEED).tolist()
+    b0 = eng.load_batch([states[v] for v in dealt])
+    plan = launch_plan(eng.tables, b0, tcfg.tile)
+    if plan.lanes != WARP:
+        raise AssertionError(f"phase 22: T = {plan.tile}, {plan.lanes} "
+                             f"lanes a row")
+    K = tcfg.k_steps
+    torch.cuda.synchronize()
+    kern, ref = clone(b0), clone(b0)
+    worst = 0
+    with warp_rows() as warp:
+        for launch in range(checked):
+            turbo_step(eng.tables, kern, K)
+            turbo_step_reference(eng.tables, ref, K)
+            torch.cuda.synchronize()
+            worst = max(worst, max_abs_diff(kern, ref))
+            if worst:
+                raise AssertionError(f"phase 22: kernel and plain version "
+                                     f"differ after launch {launch + 1}")
+    if warp["launches"] != checked:
+        raise AssertionError(f"phase 22: {warp['launches']} of {checked} "
+                             f"launches a warp a row")
+    steps = int((kern.regs[:, C_STEPS] - b0.regs[:, C_STEPS]).long().sum())
+    del kern, ref
+    launch_bound = step_bound(eng.tables, b0, steps // checked)
+    L = 4
+    per_k = {k: timed(lambda b, k=k: turbo_step(eng.tables, b, k), clone(b0),
+                      L, True) / L * 1e3 for k in (1, K)}
+    staged = clone(b0)
+    staged.regs[:, C_PC] = eng.tables.host.n_instr
+    stage_ms = timed(lambda b: turbo_step(eng.tables, b, K), staged, L,
+                     True) / L * 1e3
+    del staged
+    log(f"phase 22 prompt-chain, {n} rows resumed from {len(states)} "
+        f"states [{card}]: the first {checked} launches x {K} steps, "
+        f"{warp['launches']} of them a warp a row (turbo.warp_row_launches),"
+        f" bit-identical to the plain version; kernel {per_k[K]:.3f} "
+        f"ms/launch at K={K}, {per_k[1]:.3f} at K=1 (queued), the staging "
+        f"alone {stage_ms:.3f}; bound {launch_bound['bound_ms']:.4f} ms "
+        f"({launch_bound['bound_by']}), the kernel at "
+        f"{launch_bound['bound_ms'] / per_k[K] * 100:.2f} % of it; "
+        f"{tile_line(eng.tables, b0, tcfg.tile)}")
+    return {"max_abs_err": worst, "ms": per_k[K]}
+
+
 def programs() -> dict:
     """Phase 1's programs: the bench's and the port's test programs (the
     program text only)."""
@@ -3191,7 +3316,7 @@ def main(argv=None) -> int:
         phase10(tmp, tp.NOT_TURBO)
         sharded = phase11(card, tmp)
         phase12(card, tmp, race_io)
-        phase13(card, tmp)
+        promoted = phase13(card, tmp)
         general_ops = phase14(card, tmp)
         phase15(card, tmp)
         t_resume = time.perf_counter()
@@ -3207,11 +3332,18 @@ def main(argv=None) -> int:
         benched = phase20(card)
         log(f"phase 20 {time.perf_counter() - t_bench:.1f} s")
         alone = phase21(card)
-    # the launches of phases 16-18's and 20's main paths join their
-    # kernels' counts
-    main_path["launches"] += resumed["launches"] + benched["step_launches"]
+        chain = phase22(card)
+    # the launches of phases 13's, 16-18's and 20's paths join their
+    # kernels' counts, those that stepped a row with a warp counted apart;
+    # phase 22's launches are checks and timings, its deviation counts
+    paths = (resumed, dict(benched, launches=benched["step_launches"]),
+             promoted)
+    for counted in ("launches", "warp_launches"):
+        main_path[counted] += sum(p[counted] for p in paths)
     main_path["max_abs_err"] = max(worst, main_path["max_abs_err"],
-                                   resumed["max_abs_err"])
+                                   chain["max_abs_err"],
+                                   *(p["max_abs_err"] for p in paths
+                                     if "max_abs_err" in p))
     # the regroup: its launches on phases 5, 16 and 20's main paths, those
     # of 5 and 16 held to the plain version, the times phase 16's
     regrouped = dict(resumed["regroup"], launches=(
@@ -3245,12 +3377,14 @@ def main(argv=None) -> int:
         dict(name="wildcard_match_kernel", source=MATCH_SRC,
              replaces=MATCH_REPLACES, launches=MW_LAUNCHES["match"],
              max_abs_err=worst, **alone["match"])]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "warp_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     # no single PyTorch call computes a VM step, the four scan values, the
     # chat filter, an expression's value or a wildcard match; the regroup's
     # plain version is one, a stable torch.sort (its library_ms)
-    kernels = [{k: dict({"library_ms": None}, **kern, route="cuda")[k]
+    kernels = [{k: dict({"library_ms": None, "warp_launches": None}, **kern,
+                        route="cuda")[k]
                 for k in keys} for kern in kernels]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -59,6 +59,38 @@
 // where they are in the batch. Each block notes its tile's rows in shared
 // memory at entry and stages each row in whole units.
 //
+// Lane groups. A row is stepped by a group of G lanes, G a template
+// parameter: 1, one thread a row as above, or WARP, a warp a row, where a
+// block's tile has at most MAX_TILE / WARP rows (the plan's `lanes`,
+// ops/turbo_step.py row_lanes). Wide rows give small tiles, and there one
+// thread a row left most of the block idle while it copied and scanned
+// kilobyte prompts a byte at a time. The step is written once for both:
+// every lane of a group runs the same scalar code on the same row, so its
+// loads of instructions, registers and meta are broadcasts, and the byte
+// loops are strided, lane l taking bytes (or words) l, l + G, ... At G = 1
+// those are the plain loops, and every barrier and vote below compiles to
+// nothing: the one-thread instance compiles to the code it had before the
+// warp came (only the three byte scans are written out for each group). Three hazards of a group under independent thread scheduling,
+// each handled by design:
+//   1. Divergence. A predicate computed over bytes (a brace or an escape in
+//      a value, a byte unlike the pattern's, a character a repr refuses) is
+//      a vote over the group (`any`) before anyone branches on it, so the
+//      group takes every branch, and parks, as one.
+//   2. Shared scalars. A step writes registers, meta cells and loop
+//      counters only after its `commit` barrier, which every lane reaches
+//      once it has made all of the step's reads; so no lane reads a value a
+//      faster lane has already replaced. (Two writes come before it, where
+//      no lane needs the old value and each reads its own write: a list
+//      literal's staged items, and THREADEND's T_DONE.) Every lane writes
+//      the same value, except in a read-modify-write (C_STEPS in `advance`,
+//      C_CLREPOCH, C_PAREPOCH, a FORNEXT counter), which lane 0 alone makes
+//      (`lead`); the next lane to read it does so past a later barrier.
+//   3. Strided bytes. Each byte helper that writes ends with `sync`, or its
+//      caller syncs before anyone reads (the render into buf, then its
+//      brace scan, put_row or the print copy; a list literal's scratch row,
+//      then its commit), so no lane reads bytes another lane has yet to
+//      write, nor writes bytes another lane has yet to read.
+//
 // Semantics are those of ops/turbo_step.py turbo_step_reference, bit for
 // bit after every launch: ints wrap at 32 bits (computed in 64 bits and
 // truncated, since signed overflow is undefined in C++), `//` and `%` are
@@ -67,7 +99,8 @@
 
 // nvcc compiles the whole file. The kernel, its launch and the one PTX copy
 // sit behind __CUDACC__, so that a host compiler can build the rest: the
-// CPU tests (tests/test_torch_turbo_tile.py) run the phases that way.
+// CPU tests (tests/test_torch_turbo_tile.py) run the phases that way, a
+// warp as 32 host threads.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -87,6 +120,7 @@ constexpr int PM_NONE = 0, PM_WAIT = 1, PM_DRAIN = 3;
 
 constexpr int MAX_W = 2048;      // widest slot: the sibling of a 512-wide batch
 constexpr int MAX_TILE = 256;    // ops/turbo_step.py MAX_TILE; threads a block
+constexpr int WARP = 32;         // ops/turbo_step.py WARP: the wide group
 constexpr int PROG_BYTES = 256;  // ops/turbo_step.py PROG_BYTES
 constexpr int MAX_STACK = 16;    // vm/turbo_tables.py RPN_MAX_STACK
 constexpr int HEADER = 32;       // vm/turbo_tables.py HEADER
@@ -172,6 +206,41 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return q;
 }
 
+// ---- a lane group -----------------------------------------------------------
+
+// This thread's lane in its group of G.
+template <int G>
+__device__ __forceinline__ int lane() {
+  static_assert(G == 1 || G == WARP, "a lane group is a thread or a warp");
+  if constexpr (G == 1) return 0;
+  else return (int)(threadIdx.x % G);
+}
+
+// The lane that makes the group's read-modify-writes (hazard 2).
+template <int G>
+__device__ __forceinline__ bool lead() {
+  return lane<G>() == 0;
+}
+
+// Hazard 3's barrier: the group's byte writes are done, and its reads.
+template <int G>
+__device__ __forceinline__ void sync() {
+  if constexpr (G > 1) __syncwarp();
+}
+
+// Hazard 2's barrier: every lane has made the step's reads; writes follow.
+template <int G>
+__device__ __forceinline__ void commit() {
+  sync<G>();
+}
+
+// Hazard 1's vote: p on any lane of the group, on every lane.
+template <int G>
+__device__ __forceinline__ bool any(bool p) {
+  if constexpr (G == 1) return p;
+  else return __any_sync(0xffffffffu, p);
+}
+
 // Optionally signed decimal of at most 9 digits; anything else is not ok.
 __device__ bool parse_dec(const uint8_t* b, int ln, int* out) {
   int start = (ln > 0 && (b[0] == '-' || b[0] == '+')) ? 1 : 0;
@@ -186,24 +255,73 @@ __device__ bool parse_dec(const uint8_t* b, int ln, int* out) {
   return true;
 }
 
+// Hazard 1: a vote of the group, once. The three scans (this one,
+// bytes_eq and repr_list's) are written out for each group: one thread stops
+// at its first hit, as it always did; a warp runs its loop out and votes
+// once. One loop for both changed one thread's code (with one vote after the
+// loop), or cost a warp 4 registers and 7 % of a prompt-chain launch on an
+// H100 (with a vote each round).
+template <int G>
 __device__ bool brace_or_escape(const uint8_t* b, int n) {
-  for (int j = 0; j < n; ++j)
-    if (b[j] == '{' || b[j] == '}' || b[j] == '\\') return true;
-  return false;
+  if constexpr (G == 1) {
+    for (int j = 0; j < n; ++j)
+      if (b[j] == '{' || b[j] == '}' || b[j] == '\\') return true;
+    return false;
+  }
+  bool hit = false;
+  for (int j = lane<G>(); j < n; j += G)
+    if (b[j] == '{' || b[j] == '}' || b[j] == '\\') {
+      hit = true;
+      break;
+    }
+  return any<G>(hit);
 }
 
+// The byte loops below leave the barrier to their callers (hazard 3).
+
 // dst[from, to) := 0, by words where dst is 4-byte aligned
+template <int G>
 __device__ __forceinline__ void zero_bytes(uint8_t* dst, int from, int to) {
   int j = from;
-  for (; j < to && ((uintptr_t)(dst + j) & 3); ++j) dst[j] = 0;
-  for (; j + 4 <= to; j += 4) *reinterpret_cast<uint32_t*>(dst + j) = 0u;
-  for (; j < to; ++j) dst[j] = 0;
+  for (; j < to && ((uintptr_t)(dst + j) & 3); ++j)
+    if (lead<G>()) dst[j] = 0;
+  int k = j + 4 * lane<G>();
+  for (; k + 4 <= to; k += 4 * G) *reinterpret_cast<uint32_t*>(dst + k) = 0u;
+  if constexpr (G > 1) k = to - (to - j) % 4 + lane<G>();  // the tail
+  for (; k < to; k += G) dst[k] = 0;
+}
+
+// A lane group's words of dst[0, n) := src[0, n), where both are 4-byte
+// aligned; returns the bytes copied, where the byte loop after it starts.
+template <int G>
+__device__ __forceinline__ int copy_words(uint8_t* dst, const uint8_t* src,
+                                          int n) {
+  if (((uintptr_t)dst & 3) || ((uintptr_t)src & 3) || n < 4) return 0;
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  for (int k = lane<G>(); k < n / 4; k += G) d[k] = s[k];
+  return n / 4 * 4;
+}
+
+// dst[0, n) := src[0, n); a warp copies by words where both are 4-byte
+// aligned. (`put` and the print's copy write this loop out with their own
+// indexing: so indexed, the one-thread instance keeps its code and its
+// registers.)
+template <int G>
+__device__ __forceinline__ void copy_bytes(uint8_t* dst, const uint8_t* src,
+                                           int n) {
+  int j = 0;
+  if constexpr (G > 1) j = copy_words<G>(dst, src, n);
+  for (j += lane<G>(); j < n; j += G) dst[j] = src[j];
 }
 
 // Append n bytes of src at offset *ln, keeping what fits in W.
+template <int G>
 __device__ void put(uint8_t* buf, int W, int* ln, const uint8_t* src, int n) {
   int lim = min(n, W - *ln);
-  for (int j = 0; j < lim; ++j) buf[*ln + j] = src[j];
+  int j = 0;
+  if constexpr (G > 1) j = copy_words<G>(buf + *ln, src, lim);
+  for (j += lane<G>(); j < lim; j += G) buf[*ln + j] = src[j];
   *ln += n;
 }
 
@@ -230,31 +348,36 @@ __device__ void put_int(uint8_t* buf, int W, int* ln, int v) {
   *ln = o + nd;
 }
 
+template <int G>
 __device__ void copy_row(uint8_t* dst, const uint8_t* src, int W) {
   const uintptr_t at = (uintptr_t)dst | (uintptr_t)src;
   if ((W & 15) == 0 && (at & 15) == 0) {
     const uint4* s = reinterpret_cast<const uint4*>(src);
     uint4* d = reinterpret_cast<uint4*>(dst);
-    for (int j = 0; j < W / 16; ++j) d[j] = s[j];
+    for (int j = lane<G>(); j < W / 16; j += G) d[j] = s[j];
   } else if ((W & 3) == 0 && (at & 3) == 0) {
     const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
     uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-    for (int j = 0; j < W / 4; ++j) d[j] = s[j];
+    for (int j = lane<G>(); j < W / 4; j += G) d[j] = s[j];
   } else {
-    for (int j = 0; j < W; ++j) dst[j] = src[j];
+    for (int j = lane<G>(); j < W; j += G) dst[j] = src[j];
   }
+  sync<G>();
 }
 
 // The first n bytes of src, then zeros, into dst[0, W).
+template <int G>
 __device__ void put_row(uint8_t* dst, const uint8_t* src, int n, int W) {
   n = max(0, min(n, W));
-  for (int j = 0; j < n; ++j) dst[j] = src[j];
-  zero_bytes(dst, n, W);
+  copy_bytes<G>(dst, src, n);
+  zero_bytes<G>(dst, n, W);
+  sync<G>();
 }
 
 // ---- list cells -------------------------------------------------------------
 
 // Cell `to` of list slot d := cell `from` of list slot s (meta and bytes).
+template <int G>
 __device__ void copy_cell(const Prog& g, const Lane& L, const int* d, int to,
                           const int* s, int from) {
   int* md = plane(L, d);
@@ -265,11 +388,13 @@ __device__ void copy_cell(const Prog& g, const Lane& L, const int* d, int to,
   md[2 * E + to] = ms[2 * E + from];
   uint8_t* bd = cell(g, L, d, to);
   const uint8_t* bs = cell(g, L, s, from);
-  for (int j = 0; j < g.ew; ++j) bd[j] = bs[j];
+  copy_bytes<G>(bd, bs, g.ew);
+  sync<G>();
 }
 
 // Cell e of list slot d := one element (bytes: the first vln of vbuf, then
 // zeros; none when vbuf is null).
+template <int G>
 __device__ void set_cell(const Prog& g, const Lane& L, const int* d, int e,
                          int vt, int vi, int vln, const uint8_t* vbuf) {
   int* md = plane(L, d);
@@ -278,12 +403,14 @@ __device__ void set_cell(const Prog& g, const Lane& L, const int* d, int e,
   md[2 * g.E + e] = vln;
   uint8_t* bd = cell(g, L, d, e);
   int n = vbuf == nullptr ? 0 : max(0, min(vln, g.ew));
-  for (int j = 0; j < n; ++j) bd[j] = vbuf[j];
-  zero_bytes(bd, n, g.ew);
+  copy_bytes<G>(bd, vbuf, n);
+  zero_bytes<G>(bd, n, g.ew);
+  sync<G>();
 }
 
+template <int G>
 __device__ void zero_cell(const Prog& g, const Lane& L, const int* d, int e) {
-  set_cell(g, L, d, e, 0, 0, 0, nullptr);
+  set_cell<G>(g, L, d, e, 0, 0, 0, nullptr);
 }
 
 __device__ __forceinline__ void set_list_regs(const Lane& L, const int* s,
@@ -297,6 +424,7 @@ __device__ __forceinline__ void set_list_regs(const Lane& L, const int* s,
 // W). Parks on an element of the wrong kind for the slot's element kind,
 // on a string element with a byte outside printable ASCII, ' or \, and
 // (as a template hole) on a brace or escape or a repr longer than W.
+template <int G>
 __device__ void repr_list(const Prog& g, const Lane& L, const int* s,
                           uint8_t* buf, int* ln, bool* park) {
   const int W = g.W, E = g.E, ek = s[7];
@@ -315,56 +443,69 @@ __device__ void repr_list(const Prog& g, const Lane& L, const int* s,
       continue;
     }
     if (et != T_STR || el > g.ew) *park = true;
-    for (int j = 0; j < elc; ++j)
-      if (c[j] < 32 || c[j] > 126 || c[j] == '\'' || c[j] == '\\')
-        *park = true;
+    if constexpr (G == 1) {  // as brace_or_escape
+      for (int j = 0; j < elc; ++j)
+        if (c[j] < 32 || c[j] > 126 || c[j] == '\'' || c[j] == '\\')
+          *park = true;
+    } else {
+      bool bad = false;
+      for (int j = lane<G>(); j < elc; j += G)
+        if (c[j] < 32 || c[j] > 126 || c[j] == '\'' || c[j] == '\\')
+          bad = true;
+      if (any<G>(bad)) *park = true;
+    }
     put_str(buf, W, ln, (ek == KIND_STR && e > 0) ? ", '" : "'");
-    put(buf, W, ln, c, elc);
+    put<G>(buf, W, ln, c, elc);
     put_str(buf, W, ln, "'");
   }
   put_str(buf, W, ln, "]");
   const int rl = *ln - start;
   if (rl > W) *park = true;
-  if (start < W && brace_or_escape(buf + start, min(rl, W - start)))
+  sync<G>();  // the repr's bytes, then their scan
+  if (start < W && brace_or_escape<G>(buf + start, min(rl, W - start)))
     *park = true;
 }
 
 // Append a rendered template at *ln (keeping what fits in W). Sets *missing
 // when a hole's slot is empty and *park when a hole value carries a brace
-// or an escape; the caller checks the length against W.
+// or an escape; the caller checks the length against W, and syncs before
+// the bytes are read.
+template <int G>
 __device__ void render_at(const Prog& g, const Lane& L, int seg0, int nseg,
                           uint8_t* buf, int* ln, bool* missing, bool* park) {
   const int W = g.W;
   for (int k = 0; k < nseg; ++k) {
     const int* seg = g.segs + 2 * (seg0 + k);
     if (seg[0] == SEG_LIT) {
-      put(buf, W, ln, g.lits + (size_t)seg[1] * W, g.lit_len[seg[1]]);
+      put<G>(buf, W, ln, g.lits + (size_t)seg[1] * W, g.lit_len[seg[1]]);
       continue;
     }
     const int* s = slot(g, seg[1]);
     int st = L.regs[s[1]];
     if (st == T_EMPTY) *missing = true;
     if (s[0] == KIND_LIST) {
-      if (st == T_LIST) repr_list(g, L, s, buf, ln, park);
+      if (st == T_LIST) repr_list<G>(g, L, s, buf, ln, park);
     } else if (s[0] == KIND_INT || (s[0] == KIND_MIX && st == T_INT)) {
       put_int(buf, W, ln, L.regs[s[2]]);
     } else if ((s[0] == KIND_STR || s[0] == KIND_MIX) && st == T_STR) {
       const uint8_t* r = L.row(s[4]);
       int n = L.regs[s[3]];
-      if (brace_or_escape(r, min(n, W))) *park = true;
-      put(buf, W, ln, r, n);
+      if (brace_or_escape<G>(r, min(n, W))) *park = true;
+      put<G>(buf, W, ln, r, n);
     }
   }
 }
 
 // Render a template into buf (zero past the result); *park also when the
 // result is longer than W. Returns min(length, W).
+template <int G>
 __device__ int render(const Prog& g, const Lane& L, int seg0, int nseg,
                       uint8_t* buf, bool* missing, bool* park) {
   const int W = g.W;
   int ln = 0;
-  render_at(g, L, seg0, nseg, buf, &ln, missing, park);
-  zero_bytes(buf, min(ln, W), W);
+  render_at<G>(g, L, seg0, nseg, buf, &ln, missing, park);
+  zero_bytes<G>(buf, min(ln, W), W);
+  sync<G>();
   if (ln > W) {
     *park = true;
     ln = W;
@@ -372,37 +513,50 @@ __device__ int render(const Prog& g, const Lane& L, int seg0, int nseg,
   return ln;
 }
 
+// Hazard 1: a vote of the group, once (as brace_or_escape).
+template <int G>
 __device__ bool bytes_eq(const uint8_t* a, const uint8_t* b, int n) {
-  for (int j = 0; j < n; ++j)
-    if (a[j] != b[j]) return false;
-  return true;
+  if constexpr (G == 1) {
+    for (int j = 0; j < n; ++j)
+      if (a[j] != b[j]) return false;
+    return true;
+  }
+  bool ne = false;
+  for (int j = lane<G>(); j < n; j += G)
+    if (a[j] != b[j]) {
+      ne = true;
+      break;
+    }
+  return !any<G>(ne);
 }
 
 // Anchored match of one decomposed pattern against buf[:ln].
+template <int G>
 __device__ bool match_at(const Prog& g, const int* e, const uint8_t* buf,
                          int ln) {
   const uint8_t* a = g.lits + (size_t)e[1] * g.W;
   int al = g.lit_len[e[1]];
   switch (e[0]) {
     case PAT_ANY: return true;
-    case PAT_EXACT: return ln == al && bytes_eq(buf, a, al);
-    case PAT_PREFIX: return ln >= al && bytes_eq(buf, a, al);
-    case PAT_SUFFIX: return ln >= al && bytes_eq(buf + ln - al, a, al);
+    case PAT_EXACT: return ln == al && bytes_eq<G>(buf, a, al);
+    case PAT_PREFIX: return ln >= al && bytes_eq<G>(buf, a, al);
+    case PAT_SUFFIX: return ln >= al && bytes_eq<G>(buf + ln - al, a, al);
     default: {
       const uint8_t* b = g.lits + (size_t)e[2] * g.W;
       int bl = g.lit_len[e[2]];
-      return ln >= al + bl && bytes_eq(buf, a, al) &&
-             bytes_eq(buf + ln - bl, b, bl);
+      return ln >= al + bl && bytes_eq<G>(buf, a, al) &&
+             bytes_eq<G>(buf + ln - bl, b, bl);
     }
   }
 }
 
 // The reference's end anchor also matches before one trailing newline.
+template <int G>
 __device__ bool match(const Prog& g, const int* e, const uint8_t* buf,
                       int ln) {
-  if (match_at(g, e, buf, ln)) return true;
+  if (match_at<G>(g, e, buf, ln)) return true;
   if (e[0] == PAT_ANY || e[0] == PAT_PREFIX) return false;
-  return ln > 0 && buf[ln - 1] == '\n' && match_at(g, e, buf, ln - 1);
+  return ln > 0 && buf[ln - 1] == '\n' && match_at<G>(g, e, buf, ln - 1);
 }
 
 // Evaluate an RPN program; *park when an operand is missing, not an int or
@@ -477,6 +631,7 @@ struct Val {
 
 // Evaluate an item source (SRC_*, c, d; a template renders into buf). A
 // copy of a list slot parks: a nested list is the host's.
+template <int G>
 __device__ Val eval_src(const Prog& g, const Lane& L, int kind, int c, int d,
                         uint8_t* buf, bool* park) {
   Val v{T_INT, 0, 0, nullptr};
@@ -502,7 +657,7 @@ __device__ Val eval_src(const Prog& g, const Lane& L, int kind, int c, int d,
   } else {
     bool missing = false;
     v.vt = T_STR;
-    v.vln = render(g, L, c, d, buf, &missing, park);
+    v.vln = render<G>(g, L, c, d, buf, &missing, park);
     v.vbuf = buf;
     if (missing) *park = true;
   }
@@ -510,17 +665,22 @@ __device__ Val eval_src(const Prog& g, const Lane& L, int kind, int c, int d,
 }
 
 // The item source of the items table's row.
+template <int G>
 __device__ Val eval_item(const Prog& g, const Lane& L, int row, uint8_t* buf,
                          bool* park) {
   const int* it = g.items + 3 * row;
-  return eval_src(g, L, it[0], it[1], it[2], buf, park);
+  return eval_src<G>(g, L, it[0], it[1], it[2], buf, park);
 }
 
+// The step's end: the pc on, or PARKED; one step more. Its barrier also
+// ends the step's byte work (hazard 3).
+template <int G>
 __device__ __forceinline__ void advance(const Lane& L, bool park,
                                         int next_pc) {
+  commit<G>();
   if (park) L.regs[C_STATUS] = PARKED;
   else L.regs[C_PC] = next_pc;
-  L.regs[C_STEPS] += 1;
+  if (lead<G>()) L.regs[C_STEPS] += 1;
 }
 
 __device__ __forceinline__ int tpc_col(const Prog& g, int l) {
@@ -533,7 +693,8 @@ __device__ __forceinline__ int tparg_col(const Prog& g, int l) {
   return C_BASE + 2 * g.nt + l;
 }
 
-// One VM step of one lane at pc.
+// One VM step of one instance at pc, by its lane group.
+template <int G>
 __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
                      int OW) {
   const int* in = g.ins + 8 * pc;
@@ -542,70 +703,80 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
   const int E = g.E;
   switch (in[0]) {
     case OP_HALT:
+      commit<G>();
       L.regs[C_STATUS] = DONE;
       return;
     case OP_NOP:
-      advance(L, false, pc + 1);
+      advance<G>(L, false, pc + 1);
       return;
     case OP_GOTO:
-      advance(L, false, a);
+      advance<G>(L, false, a);
       return;
     case OP_PARK:
       // a literal-name await_insert whose key is present does not yield
-      if (a >= 0 && L.regs[slot(g, a)[1]] != T_EMPTY)
-        advance(L, false, pc + 1);
-      else
+      if (a >= 0 && L.regs[slot(g, a)[1]] != T_EMPTY) {
+        advance<G>(L, false, pc + 1);
+      } else {
+        commit<G>();
         L.regs[C_STATUS] = PARKED;
+      }
       return;
     case OP_CLEAR:
-      L.regs[C_CLREPOCH] += 1;
-      zero_bytes(L.out, 0, OW);
+      commit<G>();
+      if (lead<G>()) L.regs[C_CLREPOCH] += 1;
+      zero_bytes<G>(L.out, 0, OW);
       L.regs[C_OUTLEN] = 0;
-      advance(L, false, pc + 1);
+      advance<G>(L, false, pc + 1);
       return;
     case OP_DELETE:
+      commit<G>();
       for (int k = 0; k < b; ++k)
         L.regs[slot(g, g.ints[a + k])[1]] = T_EMPTY;
-      advance(L, false, pc + 1);
+      advance<G>(L, false, pc + 1);
       return;
     case OP_SET: {
       bool park = false;
-      Val v = eval_src(g, L, b, c, d, buf, &park);
+      Val v = eval_src<G>(g, L, b, c, d, buf, &park);
+      commit<G>();
       if (!park) {
         const int* out = slot(g, a);
         L.regs[out[1]] = v.vt;
         L.regs[out[2]] = v.vi;
         L.regs[out[3]] = v.vln;
         if (v.vbuf != nullptr && out[4] >= 0 && L.row(out[4]) != v.vbuf)
-          copy_row(L.row(out[4]), v.vbuf, g.W);
+          copy_row<G>(L.row(out[4]), v.vbuf, g.W);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_MATH: {
       bool park = false;
       int v = eval_rpn(g, L, b, c, &park);
+      commit<G>();
       if (!park) {
         const int* out = slot(g, a);
         L.regs[out[1]] = T_INT;
         L.regs[out[2]] = v;
         L.regs[out[3]] = 0;
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_PRINT: {
       bool park = false, missing = false;
-      int n = render(g, L, a, b, buf, &missing, &park);
+      int n = render<G>(g, L, a, b, buf, &missing, &park);
       // print of a non-string simple key raises on the host
       if (c >= 0 && L.regs[slot(g, c)[1]] != T_STR) park = true;
       int ol = L.regs[C_OUTLEN];
       park = park || missing || ol + n > OW;
+      commit<G>();
       if (!park) {
-        for (int j = 0; j < n; ++j) L.out[ol + j] = buf[j];
+        int j = 0;
+        if constexpr (G > 1) j = copy_words<G>(L.out + ol, buf, n);
+        for (j += lane<G>(); j < n; j += G) L.out[ol + j] = buf[j];
         L.regs[C_OUTLEN] = ol + n;
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_GOTOMAP:
@@ -613,10 +784,10 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       bool park = false, missing = false, decided = false;
       int tgt = 0;
       if (in[0] == OP_GOTOMAP) {
-        int ln = render(g, L, a, b, buf, &missing, &park);
+        int ln = render<G>(g, L, a, b, buf, &missing, &park);
         for (int k = 0; k < d && !decided; ++k) {
           const int* ent = g.ents + 4 * (c + k);
-          if (match(g, ent, buf, ln)) {
+          if (match<G>(g, ent, buf, ln)) {
             tgt = ent[3];
             decided = true;
           }
@@ -640,16 +811,17 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       } else {
         routed = decided && !missing;
       }
-      advance(L, park || !routed, tgt);
+      advance<G>(L, park || !routed, tgt);
       return;
     }
     case OP_FORHEAD: {
       int counter = L.regs[a];
       int cur = counter == 0 ? 1 : counter;
+      commit<G>();
       if (cur > b) {
         // exit: loop variables keep the last iteration's values
         L.regs[a] = 0;
-        advance(L, false, c);
+        advance<G>(L, false, c);
         return;
       }
       L.regs[a] = cur;
@@ -668,16 +840,17 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
             L.regs[s[2]] = 0;
             L.regs[s[3]] = g.lit_len[el[1]];
             if (s[4] >= 0)
-              copy_row(L.row(s[4]), g.lits + (size_t)el[1] * g.W, g.W);
+              copy_row<G>(L.row(s[4]), g.lits + (size_t)el[1] * g.W, g.W);
           }
         }
       }
-      advance(L, false, pc + 1);
+      advance<G>(L, false, pc + 1);
       return;
     }
     case OP_FORNEXT:
-      L.regs[a] += 1;
-      advance(L, false, b);
+      commit<G>();
+      if (lead<G>()) L.regs[a] += 1;
+      advance<G>(L, false, b);
       return;
     case OP_SETLIST: {
       // whole-list copy: registers, and the cells when the slots differ
@@ -685,14 +858,15 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       const int* out = slot(g, a);
       int st = L.regs[src[1]];
       bool park = st == T_EMPTY;
+      commit<G>();
       if (!park) {
         if (a != b)
-          for (int k = 0; k < E; ++k) copy_cell(g, L, out, k, src, k);
+          for (int k = 0; k < E; ++k) copy_cell<G>(g, L, out, k, src, k);
         L.regs[out[1]] = st;
         L.regs[out[2]] = L.regs[src[2]];
         L.regs[out[3]] = L.regs[src[3]];
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_LISTNEW: {
@@ -701,49 +875,51 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       uint8_t* sb = L.scratch + 12 * E;
       bool park = false;
       for (int k = 0; k < c && !park; ++k) {
-        Val v = eval_item(g, L, b + k, buf, &park);
+        Val v = eval_item<G>(g, L, b + k, buf, &park);
         if (v.vln > g.ew) park = true;
         if (park) break;
         sm[k] = v.vt;
         sm[E + k] = v.vi;
         sm[2 * E + k] = v.vln;
-        put_row(sb + k * g.ew, v.vbuf, v.vbuf ? v.vln : 0, g.ew);
+        put_row<G>(sb + k * g.ew, v.vbuf, v.vbuf ? v.vln : 0, g.ew);
       }
+      commit<G>();
       if (!park) {
         const int* out = slot(g, a);
         for (int k = 0; k < E; ++k) {
           if (k < c)
-            set_cell(g, L, out, k, sm[k], sm[E + k], sm[2 * E + k],
-                     sb + k * g.ew);
+            set_cell<G>(g, L, out, k, sm[k], sm[E + k], sm[2 * E + k],
+                        sb + k * g.ew);
           else
-            zero_cell(g, L, out, k);
+            zero_cell<G>(g, L, out, k);
         }
         set_list_regs(L, out, c);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_LISTAPPEND: {
       const int* src = slot(g, b);
       int n = L.regs[src[3]];
       bool park = false;
-      Val v = eval_item(g, L, c, buf, &park);
+      Val v = eval_item<G>(g, L, c, buf, &park);
       if (L.regs[src[1]] != T_LIST || n >= E || v.vln > g.ew) park = true;
+      commit<G>();
       if (!park) {
         const int* out = slot(g, a);
         if (a != b)
-          for (int k = 0; k < E; ++k) copy_cell(g, L, out, k, src, k);
-        set_cell(g, L, out, n, v.vt, v.vi, v.vln, v.vbuf);
+          for (int k = 0; k < E; ++k) copy_cell<G>(g, L, out, k, src, k);
+        set_cell<G>(g, L, out, n, v.vt, v.vi, v.vln, v.vbuf);
         set_list_regs(L, out, n + 1);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_LISTREMOVE: {
       const int* src = slot(g, b);
       int n = L.regs[src[3]];
       bool park = false;
-      Val v = eval_item(g, L, c, buf, &park);
+      Val v = eval_item<G>(g, L, c, buf, &park);
       if (L.regs[src[1]] != T_LIST) park = true;
       if (!park) {
         // the first match: int == int by value, str == str by bytes
@@ -753,23 +929,25 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
           bool eq = (v.vt == T_INT && ms[k] == T_INT && ms[E + k] == v.vi) ||
                     (v.vbuf != nullptr && v.vt == T_STR && ms[k] == T_STR &&
                      ms[2 * E + k] == v.vln && v.vln <= g.ew &&
-                     bytes_eq(cell(g, L, src, k), v.vbuf, v.vln));
+                     bytes_eq<G>(cell(g, L, src, k), v.vbuf, v.vln));
           if (eq) {
             m = k;
             break;
           }
         }
+        commit<G>();
         const int* out = slot(g, a);
         if (a != b)
-          for (int k = 0; k < m; ++k) copy_cell(g, L, out, k, src, k);
+          for (int k = 0; k < m; ++k) copy_cell<G>(g, L, out, k, src, k);
         if (m < E) {
-          for (int k = m; k < E - 1; ++k) copy_cell(g, L, out, k, src, k + 1);
-          zero_cell(g, L, out, E - 1);
+          for (int k = m; k < E - 1; ++k)
+            copy_cell<G>(g, L, out, k, src, k + 1);
+          zero_cell<G>(g, L, out, E - 1);
         }
         // an absent item leaves the list as it was
         set_list_regs(L, out, m < E ? n - 1 : n);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_LISTINDEX: {
@@ -792,12 +970,13 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
         }
       } else {
         bool missing = false;
-        int rl = render(g, L, d, e, buf, &missing, &park);
+        int rl = render<G>(g, L, d, e, buf, &missing, &park);
         if (!parse_dec(buf, rl, &idx) || missing) park = true;
       }
       // 1-based; 0 raises on the host; negatives count from the end
       long long j = idx > 0 ? (long long)idx - 1 : (long long)n + idx;
       if (idx == 0 || j < 0 || j >= n) park = true;
+      commit<G>();
       if (!park) {
         int k = (int)min(max(j, 0LL), (long long)E - 1);
         const int* ms = plane(L, src);
@@ -807,9 +986,10 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
         L.regs[out[2]] = ms[E + k];
         L.regs[out[3]] = el;
         if (out[4] >= 0)
-          put_row(L.row(out[4]), cell(g, L, src, k), min(el, g.ew), g.W);
+          put_row<G>(L.row(out[4]), cell(g, L, src, k), min(el, g.ew),
+                     g.W);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_LISTSLICE: {
@@ -819,6 +999,7 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       int frm = eval_rpn(g, L, c, d, &park);
       int to = eval_rpn(g, L, e, f, &park);
       if (frm == 0) park = true;  // the host raises
+      commit<G>();
       if (!park) {
         // 1-based right-inclusive, with the right-bound-0 quirk, then
         // Python's own slice clamping
@@ -830,12 +1011,12 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
         const int* out = slot(g, a);
         // ascending: cell k reads cell k + pys >= k
         for (int k = 0; k < E; ++k) {
-          if (k < count) copy_cell(g, L, out, k, src, k + pys);
-          else zero_cell(g, L, out, k);
+          if (k < count) copy_cell<G>(g, L, out, k, src, k + pys);
+          else zero_cell<G>(g, L, out, k);
         }
         set_list_regs(L, out, count);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_LISTJOIN: {
@@ -844,28 +1025,30 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       const int W = g.W;
       bool park = L.regs[src[1]] != T_LIST, missing = false;
       int ln = 0;
-      render_at(g, L, c, d, buf, &ln, &missing, &park);
+      render_at<G>(g, L, c, d, buf, &ln, &missing, &park);
       int mark = ln;  // the separator's flags count with fewer than 2
-      render_at(g, L, c + d, e, buf, &mark, &missing, &park);
+      render_at<G>(g, L, c + d, e, buf, &mark, &missing, &park);
+      sync<G>();  // the elements overwrite this measure of the separator
       if (mark - ln > W) park = true;
       const int* ms = plane(L, src);
       int n = L.regs[src[3]];
       for (int k = 0; k < E && k < n; ++k) {
-        if (k > 0) render_at(g, L, c + d, e, buf, &ln, &missing, &park);
+        if (k > 0) render_at<G>(g, L, c + d, e, buf, &ln, &missing, &park);
         if (ms[k] != T_STR) park = true;
-        put(buf, W, &ln, cell(g, L, src, k),
-            max(0, min(ms[2 * E + k], g.ew)));
+        put<G>(buf, W, &ln, cell(g, L, src, k),
+               max(0, min(ms[2 * E + k], g.ew)));
       }
-      render_at(g, L, c + d + e, f, buf, &ln, &missing, &park);
+      render_at<G>(g, L, c + d + e, f, buf, &ln, &missing, &park);
       park = park || missing || ln > W;
+      commit<G>();  // and the joined bytes are all in buf
       if (!park) {
         const int* out = slot(g, a);
         L.regs[out[1]] = T_STR;
         L.regs[out[2]] = 0;
         L.regs[out[3]] = ln;
-        if (out[4] >= 0) put_row(L.row(out[4]), buf, ln, W);
+        if (out[4] >= 0) put_row<G>(L.row(out[4]), buf, ln, W);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_LISTCONCAT: {
@@ -877,13 +1060,14 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
         total += L.regs[s[3]];
       }
       if (total > E) park = true;
+      commit<G>();
       if (!park) {
         const int* out = slot(g, a);
         // descending: cell k reads a source cell <= k, so a source that is
         // the out slot is read before it is overwritten
         for (int k = E - 1; k >= 0; --k) {
           if (k >= total) {
-            zero_cell(g, L, out, k);
+            zero_cell<G>(g, L, out, k);
             continue;
           }
           int off = 0;
@@ -891,7 +1075,7 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
             const int* s = slot(g, g.ints[b + q]);
             int nq = L.regs[s[3]];
             if (k < off + nq) {
-              copy_cell(g, L, out, k, s, k - off);
+              copy_cell<G>(g, L, out, k, s, k - off);
               break;
             }
             off += nq;
@@ -899,7 +1083,7 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
         }
         set_list_regs(L, out, total);
       }
-      advance(L, park, pc + 1);
+      advance<G>(L, park, pc + 1);
       return;
     }
     case OP_FORHEADDYN: {
@@ -916,6 +1100,7 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       int counter = L.regs[a];
       int cur = counter == 0 ? 1 : counter;
       bool exiting = cur > n;
+      commit<G>();
       if (!park) {
         if (!exiting) {  // an exiting lane keeps the last values
           int k = min(max(cur - 1, 0), E - 1);
@@ -928,16 +1113,18 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
             L.regs[var[2]] = ms[E + k];
             L.regs[var[3]] = el;
             if (var[4] >= 0)
-              put_row(L.row(var[4]), cell(g, L, ls, k), min(el, g.ew), g.W);
+              put_row<G>(L.row(var[4]), cell(g, L, ls, k), min(el, g.ew),
+                         g.W);
           }
         }
         L.regs[a] = exiting ? 0 : cur;
       }
-      advance(L, park, exiting ? b : pc + 1);
+      advance<G>(L, park, exiting ? b : pc + 1);
       return;
     }
     case OP_PARBEGIN: {
       // spawn b lanes at their entry pcs; lane 0 runs first
+      commit<G>();
       L.regs[C_CURTID] = 0;
       L.regs[C_PARMODE] = a;
       L.regs[C_PARJOIN] = c;
@@ -949,12 +1136,14 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
       // loop counters of the block restart (a raced lane may have left one
       // mid-loop)
       for (int q = 0; q < f; ++q) L.regs[g.ints[e + q]] = 0;
-      advance(L, false, g.ints[d]);
+      advance<G>(L, false, g.ints[d]);
       return;
     }
     case OP_THREADEND: {
       const int nt = g.nt;
       const int cur = min(max(L.regs[C_CURTID], 0), nt - 1);
+      // before the commit, as no lane needs the old state and each reads
+      // its own write
       L.regs[tstate_col(g, cur)] = T_DONE;
       bool new_left = false, wait_left = false, ready_left = false;
       bool all_done = true;
@@ -981,17 +1170,18 @@ __device__ void step(const Prog& g, const Lane& L, int pc, uint8_t* buf,
           any_run = true;
         }
       }
+      commit<G>();
       if (complete)
         for (int l = 0; l < nt; ++l) L.regs[tstate_col(g, l)] = T_FREE;
       if (complete) L.regs[C_PARMODE] = PM_NONE;
       else if (drain) L.regs[C_PARMODE] = PM_DRAIN;
       if (complete) L.regs[C_PARJOIN] = 0;
-      L.regs[C_PAREPOCH] += complete ? 1 : 0;
+      if (lead<G>()) L.regs[C_PAREPOCH] += complete ? 1 : 0;
       L.regs[C_CURTID] = complete ? -1 : (any_run ? nxt : -1);
       if (complete) L.regs[C_PC] = b;
       else if (any_run) L.regs[C_PC] = L.regs[tpc_col(g, nxt)];
       L.regs[C_STATUS] = (complete || any_run) ? RUNNING : PARKED;
-      L.regs[C_STEPS] += 1;
+      if (lead<G>()) L.regs[C_STEPS] += 1;
       return;
     }
   }
@@ -1019,7 +1209,8 @@ __device__ void lane_yield(const Prog& g, const Lane& L) {
 // parsed program (Prog) at 0, then the tables, the tile's row indices (T
 // ints at idx_off), then the state. `*_is` is the stride from one instance
 // to the next, `*_ps` from one meta plane or sbuf row to the next.
-// lits_off < 0: the literals stay in device memory.
+// lits_off < 0: the literals stay in device memory. `lanes` steps each
+// row: 1 or WARP, the lane group's G.
 struct Tile {
   int tile, smem;
   int flat_off, flat_bytes, lits_off, lits_bytes;
@@ -1031,8 +1222,9 @@ struct Tile {
   int scr_off, scr_is;
   int buf_off, buf_is;
   int rows, planes, cells;
+  int lanes;
 };
-constexpr int TILE_FIELDS = 24;
+constexpr int TILE_FIELDS = 25;
 static_assert(sizeof(Tile) == TILE_FIELDS * sizeof(int), "Tile is flat");
 static_assert(sizeof(Prog) <= PROG_BYTES, "Prog fits its region");
 
@@ -1212,14 +1404,16 @@ __device__ __forceinline__ void stage_in(const Args& a, int b, int t, int nt,
   copy_async_wait();
 }
 
-// Phase 2, per thread: up to K steps of this thread's instance, on shared
-// memory. Returning early is stopping: no barrier inside.
+// Phase 2, per lane group: up to K steps of tile slot t / G's instance, on
+// shared memory. Returning early is stopping: no block barrier inside, and
+// a group's lanes stop together.
+template <int G>
 __device__ __forceinline__ void run(const Args& a, int b, int t,
                                     uint8_t* sm) {
   const Tile& tl = a.tl;
-  if (t >= tile_rows(a, b)) return;
+  if (t / G >= tile_rows(a, b)) return;
   const Prog g = *reinterpret_cast<const Prog*>(sm);
-  const size_t at = t;
+  const size_t at = t / G;
   const Lane L{reinterpret_cast<int*>(sm + tl.regs_off + at * tl.regs_is),
                sm + tl.sbuf_off + at * tl.sbuf_is, (size_t)tl.sbuf_ps,
                sm + tl.out_off + at * tl.out_is,
@@ -1230,7 +1424,7 @@ __device__ __forceinline__ void run(const Args& a, int b, int t,
     if (L.regs[C_STATUS] != RUNNING) return;
     const int pc = L.regs[C_PC];
     if (pc < 0 || pc >= g.P) return;
-    step(g, L, pc, buf, a.OW);
+    step<G>(g, L, pc, buf, a.OW);
     lane_yield(g, L);
   }
 }
@@ -1250,16 +1444,19 @@ bool make_args(Args* a, const int* flat, const uint8_t* lits, int* regs,
   *a = Args{flat, lits, regs, sbuf, out, meta, perm, n, regw, width,
             out_width, k_steps, Tile{}};
   memcpy(&a->tl, plan, sizeof(Tile));
-  return a->tl.tile > 0 && a->tl.tile <= MAX_TILE &&
+  const bool lanes = a->tl.lanes == 1 ||
+                     (a->tl.lanes == WARP && a->tl.tile * WARP <= MAX_TILE);
+  return lanes && a->tl.tile > 0 && a->tl.tile <= MAX_TILE &&
          a->tl.smem >= PROG_BYTES && a->tl.idx_off >= PROG_BYTES &&
          a->tl.idx_off % 4 == 0;
 }
 
 #ifdef __CUDACC__
 // One block of MAX_TILE threads per tile of T instances: all of them stage,
-// the first T step one instance each (more warps than instances keep more
-// copies in flight). Every thread reaches every barrier: a thread with
-// nothing to step skips `run` only.
+// then the first T lane groups of G step one instance each (more warps than
+// instances keep more copies in flight). Every thread reaches every
+// barrier: a thread with nothing to step skips `run` only.
+template <int G>
 __global__ void __launch_bounds__(MAX_TILE)
     turbo_step_kernel(const Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -1267,7 +1464,7 @@ __global__ void __launch_bounds__(MAX_TILE)
   if (!__syncthreads_or(running_at_entry(a, b, t, smem))) return;
   stage_in(a, b, t, nt, smem);
   __syncthreads();
-  run(a, b, t, smem);
+  run<G>(a, b, t, smem);
   __syncthreads();
   stage_out(a, b, t, nt, smem);
 }
@@ -1282,8 +1479,11 @@ constexpr int MAX_DEVICES = 64;
 
 // Launch on `stream` with the tile plan `plan` (TILE_FIELDS ints, host
 // memory), tile slot s stepping row perm[s] (perm: n ints in device memory,
-// a permutation of the rows; null: row s); returns cudaGetLastError() (0 on
-// success).
+// a permutation of the rows; null: row s), each row stepped by a lane group
+// of the plan's `lanes`: one kernel, turbo_step_kernel<1> or <WARP>.
+// Returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
+// plan the kernel cannot take (`lanes` neither 1 nor WARP, or WARP where
+// the tile's groups pass MAX_TILE threads).
 extern "C" int turbo_step_launch(const int* flat, const uint8_t* lits,
                                  int* regs, uint8_t* sbuf, uint8_t* out,
                                  int* meta, const int* perm, int n, int regw,
@@ -1299,30 +1499,43 @@ extern "C" int turbo_step_launch(const int* flat, const uint8_t* lits,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  // dynamic shared memory above 48 KB needs the opt-in, once per device
+  // dynamic shared memory above 48 KB needs the opt-in, once per device and
+  // kernel function
   static bool opted[MAX_DEVICES];
   if (!opted[dev]) {
     int most = 0;
     e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(turbo_step_kernel,
+      e = cudaFuncSetAttribute(turbo_step_kernel<1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               most);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(turbo_step_kernel<WARP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                most);
     if (e != cudaSuccess) return (int)e;
     opted[dev] = true;
   }
   const int grid = (n + a.tl.tile - 1) / a.tl.tile;
-  turbo_step_kernel<<<grid, MAX_TILE, a.tl.smem, (cudaStream_t)stream>>>(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (a.tl.lanes == WARP)
+    turbo_step_kernel<WARP><<<grid, MAX_TILE, a.tl.smem, st>>>(a);
+  else
+    turbo_step_kernel<1><<<grid, MAX_TILE, a.tl.smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The compiled kernel's attributes on the current device: registers per
-// thread, local (stack) bytes per thread, static shared bytes, the most
-// threads a block may have and the dynamic shared bytes allowed now.
-extern "C" int turbo_step_attributes(int* out5) {
+// The attributes of the compiled kernel for lane groups of `lanes` (1 or
+// WARP) on the current device: registers per thread, local (stack) bytes
+// per thread, static shared bytes, the most threads a block may have and
+// the dynamic shared bytes allowed now.
+extern "C" int turbo_step_attributes(int lanes, int* out5) {
+  if (lanes != 1 && lanes != WARP) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
-  const cudaError_t e = cudaFuncGetAttributes(&fa, turbo_step_kernel);
+  const cudaError_t e =
+      lanes == WARP ? cudaFuncGetAttributes(&fa, turbo_step_kernel<WARP>)
+                    : cudaFuncGetAttributes(&fa, turbo_step_kernel<1>);
   if (e != cudaSuccess) return (int)e;
   out5[0] = fa.numRegs;
   out5[1] = (int)fa.localSizeBytes;

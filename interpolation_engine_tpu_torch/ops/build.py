@@ -90,7 +90,7 @@ def load() -> ctypes.CDLL:
     lib.turbo_step_launch.restype = i
     lib.regroup_launch.argtypes = [p] + [i] * 4 + [p] * 4
     lib.regroup_launch.restype = i
-    lib.turbo_step_attributes.argtypes = [ints]
+    lib.turbo_step_attributes.argtypes = [i, ints]
     lib.turbo_step_attributes.restype = i
     lib.turbo_shared_memory.argtypes = [ints]
     lib.turbo_shared_memory.restype = i

@@ -60,6 +60,7 @@ T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = 0, 1, 2, 3, 4
 PM_NONE, PM_WAIT, PM_DRAIN = 0, 1, 3
 MAX_WIDTH = 2048         # csrc/turbo_step.cu MAX_W
 MAX_TILE = 256           # csrc/turbo_step.cu MAX_TILE: threads per block
+WARP = 32                # csrc/turbo_step.cu WARP: the wide lane group
 PROG_BYTES = 256         # csrc/turbo_step.cu PROG_BYTES: the parsed program
 ROW_PAD = 4              # bytes past a byte row's 16-byte round-up
 BLOCKS_PER_SM = 2        # the tile is sized for this many blocks an SM
@@ -165,7 +166,8 @@ class TilePlan:
     ``sbuf_off + r * sbuf_ps + t * sbuf_is``). ``lits_off`` is -1 when the
     literals stay in device memory. ``idx_off`` holds the batch row of each
     of the tile's slots (T int32). ``rows``, ``planes`` and ``cells`` are
-    the batch's R, M and 3E."""
+    the batch's R, M and 3E. ``lanes`` is the lane group that steps each
+    row, ``row_lanes(tile)``: 1 thread, or a warp."""
     tile: int
     smem: int
     flat_off: int
@@ -190,6 +192,7 @@ class TilePlan:
     rows: int
     planes: int
     cells: int
+    lanes: int
 
     @cached_property
     def c_fields(self):
@@ -286,6 +289,15 @@ def _fit(shape: TileShape, tile: int, shared: SharedMemory):
     return 0, False
 
 
+def row_lanes(tile: int) -> int:
+    """The lane group that steps each row of a tile of ``tile`` rows: a
+    warp (``WARP`` lanes) where the tile's warps fit the block's
+    ``MAX_TILE`` threads, else one thread. Wide rows make small tiles, and
+    there a warp copies and scans a row's kilobytes 32 lanes wide; a tile of
+    more rows keeps one thread a row."""
+    return WARP if tile * WARP <= MAX_TILE else 1
+
+
 def fits_one_instance(shape: TileShape, shared: SharedMemory) -> bool:
     """Whether the step kernel can launch a batch of ``shape`` on a card
     with ``shared`` memory: one instance fits in a block beside the
@@ -298,8 +310,8 @@ def tile_plan(tables: StepTables, batch, tile: int = 128,
     """The kernel's tile on a card with ``shared`` memory: T instances per
     block (at most ``tile`` and ``MAX_TILE``), as many as fit in a block's
     share when ``BLOCKS_PER_SM`` blocks share an SM (fewer blocks when not
-    even one instance fits), and the layout of the program tables and of
-    the tile's state in it.
+    even one instance fits), the layout of the program tables and of the
+    tile's state in it, and the lane group of each row (``row_lanes``).
 
     Each region starts 16-byte aligned. Per instance, the register row and
     each meta plane take an odd number of words, so that the 32 threads of
@@ -332,7 +344,7 @@ def tile_plan(tables: StepTables, batch, tile: int = 128,
         sbuf_off=off["sbuf"], sbuf_is=sbuf_is, sbuf_ps=t * sbuf_is,
         out_off=off["out"], out_is=out_is, scr_off=off["scr"], scr_is=scr_is,
         buf_off=off["buf"], buf_is=buf_is, rows=shape.rows,
-        planes=shape.planes, cells=shape.cells)
+        planes=shape.planes, cells=shape.cells, lanes=row_lanes(t))
 
 
 def launch_plan(tables: StepTables, batch, tile: int = 128) -> TilePlan:
@@ -495,12 +507,23 @@ def launch_order(tables: StepTables, regs: torch.Tensor, tile: int,
     return order
 
 
+def count_launch(plan: TilePlan, batch) -> None:
+    """A launch's counters, host arithmetic with no sync:
+    ``turbo.warp_row_launches`` once where a warp steps each row of the
+    plan; while recording, ``turbo.staged_bytes``."""
+    if plan.lanes > 1:
+        EVENTS.count("turbo.warp_row_launches")
+    if EVENTS.recorded is not None:
+        EVENTS.count("turbo.staged_bytes", staged_bytes(plan, batch))
+
+
 def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
     """``k_steps`` VM steps on every RUNNING lane of ``batch`` (a
     ``TurboBatch`` of regs (N, REGW) int32, sbuf (R, N, W) uint8, out
     (N, OW) uint8, meta (M, N, 3E) int32), in place; returns ``batch``.
-    On the card, one block per tile of ``launch_plan`` (at most ``tile``
-    instances a block), in ``launch_order``."""
+    On the card, one kernel a launch, one block per tile of ``launch_plan``
+    (at most ``tile`` instances a block, each stepped by the plan's lane
+    group), in ``launch_order``; counted by ``count_launch``."""
     _check(tables, batch)
     regs, sbuf, out, meta = batch
     if regs.device.type == "cpu":
@@ -515,8 +538,7 @@ def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
     with torch.cuda.device(regs.device):
         plan = launch_plan(tables, batch, tile)
         order = launch_order(tables, regs, plan.tile, sm_count(regs.device))
-        if EVENTS.recorded is not None:
-            EVENTS.count("turbo.staged_bytes", staged_bytes(plan, batch))
+        count_launch(plan, batch)
         rc = lib.turbo_step_launch(
             tables.flat.data_ptr(), tables.lits.data_ptr(), regs.data_ptr(),
             sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(),
@@ -534,16 +556,18 @@ def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
 turbo_step.launches = 0
 
 
-def kernel_attributes(device) -> dict:
-    """The compiled step kernel's attributes on CUDA ``device``
-    (``cudaFuncGetAttributes``): registers and local (stack) bytes per
-    thread, static shared bytes, the most threads a block may have, and the
-    dynamic shared bytes allowed (the opt-in, after the first launch)."""
+def kernel_attributes(device, lanes: int = 1) -> dict:
+    """The compiled step kernel's attributes on CUDA ``device`` for lane
+    groups of ``lanes`` (1 or ``WARP``: ``turbo_step_kernel<1>`` or
+    ``<32>``) (``cudaFuncGetAttributes``): registers and local (stack)
+    bytes per thread, static shared bytes, the most threads a block may
+    have, and the dynamic shared bytes allowed (the opt-in, after the first
+    launch)."""
     from .build import load
     lib = load()
     vals = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        rc = lib.turbo_step_attributes(vals)
+        rc = lib.turbo_step_attributes(lanes, vals)
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {rc} "
                            f"({lib.turbo_error_string(rc).decode()})")

@@ -385,6 +385,85 @@ def test_kernel_attributes_show_no_stack_buffer(cuda):
     assert attrs["max_dynamic_shared_bytes"] > 48 * 1024
 
 
+# registers and local bytes a thread of the one-thread instance,
+# turbo_step_kernel<1>'s registers and local bytes as of the kernel before
+# it had a warp instance, built by nvcc 12.8 for sm_90a: a ceiling, since
+# another toolchain may allot fewer; the local bytes are the RPN operand
+# stack, which is indexed at run time
+ONE_THREAD = {"registers": 100, "local_bytes": 64}
+
+
+def test_both_instances_attributes(cuda):
+    """Each lane group's instance: no stack past the RPN operand stack,
+    and the opt-in above 48 KB, which the first launch sets for both; the
+    one-thread instance takes no more registers and stack than it had
+    before the warp instance came."""
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        kernel_attributes)
+    eng = TurboEngine(compile_src(tp.COPY_TYPES), TurboConfig(), device=cuda)
+    eng.step_fn(5)(eng.make_batch(5))
+    torch.cuda.synchronize()
+    one, warp = kernel_attributes(cuda, 1), kernel_attributes(cuda, 32)
+    for attrs in (one, warp):
+        assert attrs["local_bytes"] <= ONE_THREAD["local_bytes"]
+        assert attrs["max_dynamic_shared_bytes"] > 48 * 1024
+    assert all(one[k] <= most for k, most in ONE_THREAD.items()), one
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernel_attributes(cuda, 16)
+
+
+def wide_case(name, cuda):
+    """(engine, batch) of a plan that steps a row with a warp: the
+    ``prompt-chain`` cell's rows resumed from 600 of its traffic's states
+    (T = 3), or the width-2048 sibling of the bench's width-512 adventure
+    (T = 5)."""
+    if name == "prompt_chain":
+        from portbench import run
+        from interpolation_engine_tpu_torch._shared import planner
+        from interpolation_engine_tpu_torch.vm.turbo import base_config
+        traffic = run.load_cell("prompt-chain")["traffic"]
+        text = run.program_text(traffic)
+        plan = planner.plan_turbo(compile_src(text))
+        eng = TurboEngine(plan.compiled, base_config(plan), device=cuda,
+                          plan=plan)
+        states = run.start_states(traffic, text, 2**31 + 99)
+        return eng, eng.load_batch(random.Random(99).sample(states, 600))
+    eng = TurboEngine(compile_src(bench.adventure_program()), TurboConfig(
+        width=2048, out_width=2048, k_steps=16, list_cap=12,
+        elem_width=512), device=cuda)
+    return eng, eng.make_batch(1024)
+
+
+@pytest.mark.parametrize("name", ["prompt_chain", "sibling_w2048"])
+def test_kernel_steps_a_wide_row_with_a_warp(name, cuda):
+    """The warp instance on the rows it takes: bit for bit the plain
+    version after every launch (32 steps a launch for the prompt chain, as
+    its cell launches; 16 for the sibling)."""
+    from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
+    eng, batch = wide_case(name, cuda)
+    plan = launch_plan(eng.tables, batch)
+    assert plan.lanes == 32 and plan.tile <= 8
+    held_to_plain(eng, batch, eng.tcfg.k_steps, 3)
+
+
+def test_a_launch_counts_a_warp_a_row_where_its_plan_says(cuda):
+    """``turbo.warp_row_launches``: three launches of the prompt chain's
+    wide batch (T = 3) count three; three of adventure at width 128
+    (T > 8) count none."""
+    from interpolation_engine_tpu_torch.core.events import EVENTS
+    from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
+    narrow = TurboEngine(compile_src(bench.adventure_program()), ADVENTURE,
+                         device=cuda)
+    for (eng, batch), want in ((wide_case("prompt_chain", cuda), 3),
+                               ((narrow, narrow.make_batch(200)), 0)):
+        with EVENTS.recording() as rec:
+            for _ in range(3):
+                turbo_step(eng.tables, batch, 4)
+        torch.cuda.synchronize()
+        assert launch_plan(eng.tables, batch).lanes == (32 if want else 1)
+        assert rec.counters.get("turbo.warp_row_launches", 0) == want
+
+
 def test_launch_plan_is_made_once_for_the_cards_shared_memory(cuda):
     from interpolation_engine_tpu_torch.ops.turbo_step import (
         H100_SHARED, launch_plan, shared_memory, tile_plan)

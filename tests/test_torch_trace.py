@@ -5,8 +5,9 @@ nothing; on, its spans nest as the step does, its counters count what the
 step did, and its clock is ``time.time_ns``'s. The turbo launch's order
 (``ops/turbo_step.py`` ``launch_order``) counts its regroups, and only
 while recording reads back its warps' start pcs. Each tile plan counts its
-T and where its literals stay, each launch on a card the bytes it stages,
-and the entry the base width it sizes for a program."""
+T and where its literals stay, each launch on a card the bytes it stages
+and whether a warp steps each row, and the entry the base width it sizes
+for a program."""
 
 import ast
 import pathlib
@@ -473,3 +474,59 @@ def test_a_launch_on_the_card_counts_its_staged_bytes(wide):
     assert rec.counters["turbo.staged_bytes"] == 3 * real(plan, batch)
     assert "turbo.tile_rows" not in rec.counters   # the plan was kept
     assert plan.lits_off < 0
+
+
+# ---- a warp a row: turbo.warp_row_launches -----------------------------------
+
+def cell_plan(cell: str):
+    """A few rows of a cell's engine, as the benchmark makes them, and the
+    plan its launches take on an H100 (the plan follows each row's shapes,
+    not the number of rows)."""
+    from portbench import run
+    spec = run.load_cell(cell)
+    text = run.program_text(spec["traffic"])
+    eng = run.Turbo(compile_text(text), spec["config"], torch, "cpu")
+    states = run.start_states(spec["traffic"], text, 2**31 + 7)
+    eng.deal_rows(states, run.deal(torch, 6, len(states), 7))
+    batch = eng.make(6)
+    return batch, ts.tile_plan(eng.eng.tables, batch, eng.cfg.tile,
+                               ts.H100_SHARED)
+
+
+def compile_text(text: str):
+    program = json5.loads(loader.add_line_numbers(text))
+    validator.validate_program(program)
+    return compile_program(program)
+
+
+@pytest.mark.parametrize("cell,tile,warp", [("prompt-chain", 3, True),
+                                            ("adventure", 53, False),
+                                            ("lockstep", 53, False)])
+def test_warp_row_launches_are_the_launches_of_a_wide_cell(cell, tile, warp):
+    """``turbo.warp_row_launches``, host arithmetic with no sync, once for
+    each launch that steps its rows a warp each (``count_launch``, which
+    ``turbo_step`` calls once a launch on a card): over a window of the
+    cell's launches it equals the launches in ``prompt-chain`` (T = 3) and
+    is never counted in ``adventure`` or ``lockstep`` (T = 53)."""
+    batch, plan = cell_plan(cell)
+    assert (plan.tile, plan.lanes) == (tile, ts.WARP if warp else 1)
+    with EVENTS.recording() as rec:
+        for _ in range(5):
+            ts.count_launch(plan, batch)
+    assert rec.counters.get("turbo.warp_row_launches", 0) == (5 if warp
+                                                              else 0)
+    assert rec.counters["turbo.staged_bytes"] == 5 * ts.staged_bytes(plan,
+                                                                      batch)
+    ts.count_launch(plan, batch)                 # off: nothing, no error
+    assert EVENTS.recorded is None
+
+
+def test_turbo_step_counts_each_launch_through_count_launch():
+    """The wrapper's one site: every card launch goes through
+    ``count_launch`` once, before the kernel."""
+    import inspect
+    src = inspect.getsource(ts.turbo_step)
+    assert src.count("count_launch(plan, batch)") == 1
+    assert src.index("count_launch(") < src.index("turbo_step_launch(")
+    assert "EVENTS.count" not in src
+

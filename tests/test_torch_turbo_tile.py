@@ -13,9 +13,18 @@ barriers: for each block, the entry check for every thread, then stage-in
 for every thread, then ``run``, then stage-out. Shared memory starts as
 garbage and a guard past its end must stay untouched. The result must equal
 ``turbo_step_reference`` bit for bit after every launch.
+
+A plan of at most 8 rows a tile steps each row with a warp (the plan's
+``lanes``, ``row_lanes``). The header models a warp as 32 host threads
+that the host schedules as they come: ``__syncwarp`` is a barrier of the
+32 and a vote is that barrier with the lanes' predicates reduced, so a
+missing barrier or a register written by many lanes at once shows as a
+wrong step count or byte, over several seeds. Those plans also run with one
+thread a row, the other instance of the same step.
 """
 
 import ctypes
+import dataclasses
 import functools
 import random
 import shutil
@@ -266,6 +275,14 @@ HARNESS = r"""
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <linux/futex.h>
+#include <sys/syscall.h>
+#include <unistd.h>
+#include <atomic>
+#include <chrono>
+#include <climits>
+#include <thread>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 template <class T> static inline T min(T a, T b) { return b < a ? b : a; }
@@ -275,13 +292,88 @@ static void copy_async(void* s, const void* g, int bytes) {
   memcpy(s, g, bytes);
 }
 static void copy_async_wait() {}
+
+// A warp on the host: 32 threads, one a lane, scheduled by the host as they
+// come. __syncwarp is a barrier of the 32; a vote is that barrier, the
+// lanes' predicates reduced as the last lane arrives. A lane that waits
+// spins a little, then sleeps on the barrier's phase (a futex), so that the
+// lanes still to come get the cores. A barrier some lane never reaches (a group that diverged)
+// is given up after 20 s: the warp is marked hung, every later barrier
+// passes, and the launch fails.
+struct HostWarp {
+  std::atomic<int> arrived{0};
+  std::atomic<unsigned> phase{0};
+  std::atomic<bool> vote{false}, hung{false};
+  bool result = false;
+
+  unsigned* futex() { return reinterpret_cast<unsigned*>(&phase); }
+
+  bool arrive(bool p) {
+    if (hung.load()) return false;
+    if (p) vote.store(true, std::memory_order_relaxed);
+    const unsigned ph = phase.load(std::memory_order_acquire);
+    if (arrived.fetch_add(1, std::memory_order_acq_rel) == 31) {
+      result = vote.exchange(false, std::memory_order_relaxed);
+      arrived.store(0, std::memory_order_relaxed);
+      phase.store(ph + 1, std::memory_order_release);
+      syscall(SYS_futex, futex(), FUTEX_WAKE_PRIVATE, INT_MAX, nullptr,
+              nullptr, 0);
+      return result;
+    }
+    for (int spin = 0; spin < 2000; ++spin)
+      if (phase.load(std::memory_order_acquire) != ph) return result;
+    const auto t0 = std::chrono::steady_clock::now();
+    const timespec nap{0, 50 * 1000 * 1000};
+    while (phase.load(std::memory_order_acquire) == ph) {
+      syscall(SYS_futex, futex(), FUTEX_WAIT_PRIVATE, ph, &nap, nullptr, 0);
+      if (std::chrono::steady_clock::now() - t0 > std::chrono::seconds(20)) {
+        hung.store(true);
+        phase.fetch_add(1);
+        syscall(SYS_futex, futex(), FUTEX_WAKE_PRIVATE, INT_MAX, nullptr,
+                nullptr, 0);
+        return false;
+      }
+    }
+    return result;
+  }
+};
+
+struct Dim { unsigned x; };
+static thread_local Dim threadIdx;
+static thread_local HostWarp* this_warp;
+static void __syncwarp(unsigned = 0xffffffffu) { this_warp->arrive(false); }
+static bool __any_sync(unsigned, bool p) { return this_warp->arrive(p); }
+
 #include "turbo_step.cu"
+
+// Phase 2 of one block: the one-thread groups in turn, or each warp's 32
+// lanes as 32 host threads, the block's warps one after another. False
+// when a warp hung.
+static bool run_block(const Args& a, int b, uint8_t* sm) {
+  if (a.tl.lanes == 1) {
+    for (int t = 0; t < MAX_TILE; ++t) run<1>(a, b, t, sm);
+    return true;
+  }
+  HostWarp warp;
+  std::vector<std::thread> lanes;
+  for (int l = 0; l < WARP; ++l)
+    lanes.emplace_back([&a, b, sm, &warp, l] {
+      this_warp = &warp;
+      for (int w = 0; w < MAX_TILE / WARP; ++w) {
+        threadIdx.x = w * WARP + l;
+        run<WARP>(a, b, w * WARP + l, sm);
+      }
+    });
+  for (auto& th : lanes) th.join();
+  return !warp.hung.load();
+}
 
 // The kernel's launch, block by block of MAX_TILE threads, tile slot s
 // stepping row perm[s] (perm null: row s); in a block each phase runs for
 // every thread before the next one starts, as the kernel's barriers order
 // them.
-// 0: done; -1: arguments refused; -2: a block wrote past its shared memory.
+// 0: done; -1: arguments refused; -2: a block wrote past its shared memory;
+// -3: a warp's lanes missed one another's barrier.
 extern "C" int rehearse(const int* flat, const uint8_t* lits, int* regs,
                         uint8_t* sbuf, uint8_t* out, int* meta,
                         const int* perm, int n, int regw, int width,
@@ -302,7 +394,7 @@ extern "C" int rehearse(const int* flat, const uint8_t* lits, int* regs,
     for (int t = 0; t < nt; ++t) any = running_at_entry(a, b, t, sm) || any;
     if (!any) continue;
     for (int t = 0; t < nt; ++t) stage_in(a, b, t, nt, sm);
-    for (int t = 0; t < nt; ++t) run(a, b, t, sm);
+    if (!run_block(a, b, sm)) rc = -3;
     for (int t = 0; t < nt; ++t) stage_out(a, b, t, nt, sm);
     for (int j = a.tl.smem; j < size; ++j)
       if (sm[j] != 0xA5) rc = -2;
@@ -321,7 +413,7 @@ def rehearsal(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("rehearsal")
     (tmp / "harness.cpp").write_text(HARNESS)
     so = tmp / "librehearsal.so"
-    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+    subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC",
                     "-fno-strict-aliasing", "-I", str(CSRC), "-o", str(so),
                     str(tmp / "harness.cpp")], check=True,
                    capture_output=True, timeout=300)
@@ -584,3 +676,111 @@ def test_the_regroup_order_puts_the_parked_and_done_tiles_last():
     status = batch.regs[perm.long(), C_STATUS].view(-1, plan.tile)
     assert bool((status[:3] == 0).all())
     assert bool((status[3:] != 0).all())
+
+
+# ---- the lane group: a warp a row where the tile has at most 8 rows -------
+
+WARP_ROWS = ts.MAX_TILE // ts.WARP
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_the_plan_gives_a_warp_a_row_only_to_small_tiles(name):
+    """``row_lanes``: a warp where T x 32 fits the block's 256 threads, one
+    thread a row otherwise; the narrow shapes keep one thread a row."""
+    eng = engine(name)
+    plan = ts.tile_plan(eng.tables, eng.make_batch(4))
+    assert plan.lanes == (ts.WARP if plan.tile <= WARP_ROWS else 1)
+    assert plan.lanes == ts.row_lanes(plan.tile)
+    if name in ("adventure", "spine", "adventure_w80", "list_literal"):
+        assert plan.tile > WARP_ROWS and plan.lanes == 1
+
+
+def test_row_lanes_turns_at_eight_rows():
+    assert [ts.row_lanes(t) for t in (1, 3, 5, 8, 9, 53, 256)] == [
+        32, 32, 32, 32, 1, 1, 1]
+
+
+@pytest.mark.parametrize("lanes,tile", [(32, 9), (32, 13), (16, 4), (0, 4),
+                                        (2, 1)])
+def test_the_kernel_refuses_a_lane_group_that_does_not_fit(lanes, tile,
+                                                           rehearsal):
+    """The launch's argument check, shared by the card's launch (there
+    ``cudaErrorInvalidValue``): a warp a row for more than 8 rows a tile,
+    or a group neither one thread nor a warp."""
+    eng = engine("adventure")
+    batch = eng.make_batch(20)
+    plan = dataclasses.replace(ts.tile_plan(eng.tables, batch, tile=tile),
+                               lanes=lanes)
+    before = type(batch)(*(t.clone() for t in batch))
+    vals = astuple(plan)
+    regs, sbuf, out, meta = batch
+    rc = rehearsal.rehearse(eng.tables.flat.data_ptr(),
+                            eng.tables.lits.data_ptr(), regs.data_ptr(),
+                            sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(),
+                            None, regs.shape[0], regs.shape[1],
+                            sbuf.shape[2], out.shape[1], 4,
+                            (ctypes.c_int * len(vals))(*vals), len(vals))
+    assert rc == -1
+    for a, b in zip(batch, before):
+        assert torch.equal(a, b)
+
+
+def prompt_chain_case(seed):
+    """A few hundred rows of the ``prompt-chain`` cell (2048-byte slots,
+    T = 3, the literals in device memory), resumed from the traffic's
+    states drawn from the seed."""
+    from portbench import run
+    from interpolation_engine_tpu_torch._shared import planner
+    from interpolation_engine_tpu_torch.vm.turbo import base_config
+    traffic = run.load_cell("prompt-chain")["traffic"]
+    text = run.program_text(traffic)
+    plan = planner.plan_turbo(compile_src(text))
+    eng = TurboEngine(plan.compiled, base_config(plan), device="cpu",
+                      plan=plan)
+    states = run.start_states(traffic, text, 2**31 + seed)
+    picks = random.Random(seed).sample(states, 240)
+    batch = eng.load_batch(picks)
+    plan = ts.tile_plan(eng.tables, batch, eng.tcfg.tile)
+    assert (plan.tile, plan.lanes, plan.lits_off) == (3, ts.WARP, -1)
+    return eng, batch, 8, 2, plan
+
+
+WARP_SEEDS = [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("seed", WARP_SEEDS)
+@pytest.mark.parametrize("name", ["adventure_w2048", "promoted_w768",
+                                  "prompt_chain"])
+def test_rehearsed_warp_a_row(name, seed, rehearsal):
+    """The wide shapes through the warp path at their configurations'
+    tiles (the width-2048 sibling, T = 5; ``promoted_w768``, tile 8; the
+    ``prompt-chain`` cell, T = 3), each over several seeds (the rows' loop
+    counters, or the prompt-chain states drawn): equal to the plain version
+    after every launch, the guard untouched."""
+    if name == "prompt_chain":
+        case = prompt_chain_case(seed)
+    else:
+        eng = engine(name)
+        batch = eng.make_batch(50)
+        spread(eng, batch, seed=seed)
+        case = (eng, batch, 16, 3, ts.tile_plan(eng.tables, batch,
+                                                eng.tcfg.tile))
+    assert case[-1].lanes == ts.WARP
+    hold(rehearsal, *case)
+
+
+# the cases above whose plan steps a row with a warp
+WARP_CASES = sorted(name for name in CASES
+                    if name.startswith("random_") or name in (
+                        "shape_adventure_w2048", "odd_widths"))
+
+
+@pytest.mark.parametrize("case", WARP_CASES)
+def test_rehearsed_one_thread_a_row_at_small_tiles(case, rehearsal):
+    """The cases whose tiles have at most 8 rows, with the plan's lane
+    group set to one thread: the G = 1 instance of the same step, which
+    the card runs at larger tiles, holds at these shapes too."""
+    eng, batch, k, launches, plan = CASES[case]()
+    assert plan.lanes == ts.WARP
+    hold(rehearsal, eng, batch, k, launches,
+         dataclasses.replace(plan, lanes=1))
