@@ -67,9 +67,10 @@ and prints no result):
    adventure program, the bench's general VMConfig, 131,072 instances; two
    launches with every brace-scan, math-evaluator (M) and wildcard (W) call
    held against its plain version on the same inputs (``CheckedMW``); then
-   the bench's measurement (one warm launch, 8 launches x 8 steps, no
-   ring) with tasks/s, the brace scan's share of the wall time, and M and
-   W's launches (their plain versions launched none);
+   the bench's measurement (one warm launch, recorded, then 8 launches x
+   8 steps, no ring) with tasks/s, the brace scan's share of the wall time,
+   and M and W's launches in the warm launch (their plain versions ran
+   none);
 9. the general engine to DONE through the ring: the adventure program at 40
    turns, 4,096 instances (cut from 131,072 because every instance parks
    about 13 times, each a per-row host service); every instance DONE with
@@ -203,13 +204,18 @@ Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
 card asleep while the host queues the launches, so that it is the card's
 time alone. The host oracle is the port's own copy of the host runtime.
+A phase counts its main path's launches from the port's counters
+(``counts``: ``kernel.<name>`` a kernel's launches, ``plain.<name>`` its
+plain version's calls, ``turbo.warp_row_launches`` the step kernel's
+launches that stepped a row with a warp), recorded around that path only,
+never around a timing loop; a main path's own wall time is taken while
+recording, one host sync a step launch more than a run unrecorded.
 The last two lines of standard output are one JSON object naming each kernel (the
 regroup's three kernels, ``csrc/regroup.cu``, as one entry) with its
 launches on its main path (for the step kernel, those of phases 5, 13, 16
 and 20, and apart, in ``warp_launches``, those of them that stepped a row
-with a warp by the port's counter ``turbo.warp_row_launches``; phase 22's
-launches are checks and timings), its largest deviation from the plain
-version,
+with a warp; phase 22's launches are checks and timings), its largest
+deviation from the plain version,
 its time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes it must move over 3.35 TB/s, or its
 operations over 67 TFLOP/s, whichever is larger; over several cards, the
@@ -228,6 +234,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SRC = "interpolation_engine_tpu_torch/csrc/turbo_step.cu"
@@ -330,17 +337,29 @@ def count_services(engines, counts: dict = None) -> dict:
 
 
 @contextlib.contextmanager
-def warp_rows():
-    """Yields a dict whose ``"launches"``, once the block ends, is the
-    port's counter ``turbo.warp_row_launches`` over the block: the step
-    kernel's launches that stepped each row with a warp. Records the
-    port's spans and counters over the block, which adds a host sync to
-    each launch."""
+def counts():
+    """Yields a ``Counter`` that holds, once the block ends, the port's
+    counters over the block (``EVENTS``): ``kernel.<name>`` for a hand
+    kernel's launches, ``plain.<name>`` for its plain version's calls,
+    ``turbo.warp_row_launches`` and the rest. Records the port's spans and
+    counters over the block, which adds a host sync to each step launch:
+    wrap a main path, never a timing loop."""
     from interpolation_engine_tpu_torch.core.events import EVENTS
-    got = {}
+    got = Counter()
     with EVENTS.recording() as rec:
         yield got
-    got["launches"] = rec.counters.get("turbo.warp_row_launches", 0)
+    got.update(rec.counters)
+
+
+def on_main_path(phase: str, got, *kernels: str, plain: int = 0) -> None:
+    """Raises unless each of ``kernels`` launched in ``got`` (``counts``)
+    and the plain versions ran ``plain`` times in all (a check's calls)."""
+    idle = [k for k in kernels if got[f"kernel.{k}"] <= 0]
+    ran = sum(v for k, v in got.items() if k.startswith("plain."))
+    if idle or ran != plain:
+        raise AssertionError(f"{phase}: on the main path {idle} launched "
+                             f"no kernel and the plain versions ran {ran} "
+                             f"times, not {plain}: {dict(got)}")
 
 
 def ring_run(eng, n: int):
@@ -598,18 +617,14 @@ def phase2(card: str, tmp: str, n: int = 131_072) -> None:
         f"{tile_line(eng.tables, b0, tcfg.tile)}")
 
     # the main path: run_async to the end, counted
-    turbo_step.launches = 0
-    turbo_step_reference.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final = eng.run(b0)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = turbo_step.launches
-    if launches <= 0 or turbo_step_reference.launches != 0:
-        raise AssertionError(
-            f"phase 2: main path launched the kernel {launches} times and "
-            f"the plain version {turbo_step_reference.launches} times")
+    with counts() as got:
+        t0 = time.perf_counter()
+        final = eng.run(b0)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    on_main_path("phase 2", got, "turbo_step")
+    launches = got["kernel.turbo_step"]
     check_all_done("phase 2", eng, final, host)
     total = int(final.regs[:, C_STEPS].long().sum())
     log(f"phase 2 spine main path [{card}]: {n} instances DONE with "
@@ -784,25 +799,20 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     batch = eng.make_batch(n)
     events = timed_steps(eng)
     torch.cuda.synchronize()
-    turbo_step.launches = turbo_step_reference.launches = 0
-    regroup.launches = 0
-    with CheckedRegroup("phase 5") as groups, warp_rows() as warp:
+    with CheckedRegroup("phase 5") as groups, counts() as got:
         t0 = time.perf_counter()
         final = eng.run(batch)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
-    launches = turbo_step.launches
-    if launches <= 0 or turbo_step_reference.launches != 0:
-        raise AssertionError(
-            f"phase 5: main path launched the kernel {launches} times and "
-            f"the plain version {turbo_step_reference.launches} times")
+    on_main_path("phase 5", got, "turbo_step")
+    launches = got["kernel.turbo_step"]
     tile = launch_plan(eng.tables, batch, tcfg.tile).tile
-    if regroup.launches != groups.compared or groups.compared != (
+    if got["kernel.regroup"] != groups.compared or groups.compared != (
             launches if regroups(n, tile, sm_count(batch.regs.device))
             else 0):
         raise AssertionError(
-            f"phase 5: {regroup.launches} regroups, {groups.compared} "
+            f"phase 5: {got['kernel.regroup']} regroups, {groups.compared} "
             f"compared, over {launches} launches")
     check_all_done("phase 5", eng, final, host)
     total = int(final.regs[:, C_STEPS].long().sum())
@@ -813,10 +823,8 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
         f"the steps {kernel_s * 1e3:.3f} ms of it ({kernel_s / elapsed:.4f});"
         f" {groups.compared} regroups, each equal to its plain version "
         f"({groups.moved} not the identity)")
-    return {"launches": launches, "warp_launches": warp["launches"],
-            "ms": t_kern / L * 1e3,
+    return {"counts": got, "ms": t_kern / L * 1e3,
             "plain_ms": t_ref / L * 1e3, "max_abs_err": worst,
-            "regroup_launches": regroup.launches,
             "regroup_max_abs_err": groups.worst, **launch_bound}
 
 
@@ -1097,39 +1105,10 @@ class CheckedRegroup:
         return False
 
 
-# M and W's launches on the general engine's main paths (phases 8, 14, 15,
-# 17, 18 and 20), joined into their rows of the kernels line
-MW_LAUNCHES = {"math": 0, "match": 0}
-
-
-def mw_kernels() -> dict:
-    """name -> (the kernel's launching function, its plain versions)."""
-    from interpolation_engine_tpu_torch.ops import match_kernel as mk
-    from interpolation_engine_tpu_torch.ops import math_kernel as mak
-    return {"math": (mak.math_eval_kernel, (mak.eval_flat_reference,
-                                            mak.eval_enum_minmax_reference)),
-            "match": (mk.wildcard_match_kernel,
-                      (mk.wildcard_match_reference,))}
-
-
-def mw_reset() -> None:
-    for kernel, plains in mw_kernels().values():
-        for fn in (kernel, *plains):
-            fn.launches = 0
-
-
-def mw_collect(phase: str) -> dict:
-    """M and W's launches since ``mw_reset``, joined to ``MW_LAUNCHES``;
-    raises if a plain version launched on the main path."""
-    got = {}
-    for name, (kernel, plains) in mw_kernels().items():
-        plain = sum(fn.launches for fn in plains)
-        if plain:
-            raise AssertionError(f"{phase}: the plain {name} version "
-                                 f"launched {plain} times on the main path")
-        got[name] = kernel.launches
-        MW_LAUNCHES[name] += kernel.launches
-    return got
+def mw_launches(got) -> dict:
+    """M and W's launches in ``got`` (``counts``)."""
+    return {"math": got["kernel.math_eval"],
+            "match": got["kernel.wildcard_match"]}
 
 
 class CheckedMW:
@@ -1218,16 +1197,14 @@ def phase8(card: str, n: int = 131_072) -> dict:
             f"at {n} instances, each bit-identical to the plain version")
         del b
 
-        # the bench's measurement, counted
+        # the bench's measurement, its warm launch counted
         batch = runner.make_instances(n)
         torch.cuda.synchronize()
-        scan_mod.brace_scan.launches = 0
-        scan_mod.brace_scan_reference.launches = 0
-        mw_reset()
-        t0 = time.perf_counter()
-        warm = runner.launch(batch, inner)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        with counts() as got:
+            t0 = time.perf_counter()
+            warm = runner.launch(batch, inner)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
         del warm
         state = batch
         before = int(state.steps.long().sum())
@@ -1238,15 +1215,7 @@ def phase8(card: str, n: int = 131_072) -> dict:
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         checked.timing = False
-        launches = scan_mod.brace_scan.launches
-        if launches <= 0 or scan_mod.brace_scan_reference.launches != 0:
-            raise AssertionError(
-                f"phase 8: main path launched the brace-scan kernel "
-                f"{launches} times and the plain version "
-                f"{scan_mod.brace_scan_reference.launches} times")
-        mw_launches = mw_collect("phase 8")
-        if mw_launches["match"] <= 0:
-            raise AssertionError(f"phase 8: M and W launches {mw_launches}")
+        on_main_path("phase 8", got, "brace_scan")
     finally:
         ik.scan_mod = scan_mod
     steps = int(state.steps.long().sum()) - before
@@ -1256,12 +1225,12 @@ def phase8(card: str, n: int = 131_072) -> dict:
     scan_s = checked.seconds()
     log(f"phase 8 general adventure bench [{card}]: {n} instances, warm "
         f"launch {warm_s:.3f} s, 8 launches x {inner} steps: {steps} steps "
-        f"in {elapsed:.3f} s = {steps / elapsed:.1f} tasks/s; {launches} "
-        f"brace-scan launches, {scan_s:.4f} s in the brace scan = "
-        f"{scan_s / elapsed:.4f} of wall time; M and W launches "
-        f"{json.dumps(mw_launches)}; running "
+        f"in {elapsed:.3f} s = {steps / elapsed:.1f} tasks/s; "
+        f"{scan_s:.4f} s in the brace scan = {scan_s / elapsed:.4f} of wall "
+        f"time; in the warm launch {got['kernel.brace_scan']} brace-scan "
+        f"launches, M and W {json.dumps(mw_launches(got))}; running "
         f"{int((status == 0).sum())}, parked {int((status == 2).sum())}")
-    return {"launches": launches, "max_abs_err": checked.worst,
+    return {"counts": got, "max_abs_err": checked.worst,
             "mw_max_abs_err": mw.worst}
 
 
@@ -1296,8 +1265,6 @@ def phase10(tmp: str, not_turbo: dict) -> None:
     general engine."""
     from interpolation_engine_tpu_torch import cli
     from interpolation_engine_tpu_torch._shared import planner
-    from interpolation_engine_tpu_torch.ops.brace_scan import brace_scan
-    from interpolation_engine_tpu_torch.ops.turbo_step import turbo_step
     from interpolation_engine_tpu_torch.vm import driver
     import io
     for name, src in not_turbo.items():
@@ -1329,12 +1296,11 @@ def phase10(tmp: str, not_turbo: dict) -> None:
                 menus.append(self)
                 return _run(self)
 
-            brace_scan.launches = turbo_step.launches = 0
             driver.DeviceRunner.launch = counted
             driver.DeviceProgramRun.run = menu_counted
             out = io.StringIO()
             try:
-                with contextlib.redirect_stdout(out):
+                with contextlib.redirect_stdout(out), counts() as got:
                     rc = cli.main(["--engine", "device", "--batch",
                                    str(batch), path])
             finally:
@@ -1346,17 +1312,16 @@ def phase10(tmp: str, not_turbo: dict) -> None:
                                      f"(rc {rc}) != host {host!r}")
             if not runs or set(runs) != {batch} or \
                     len(menus) != (batch == 1) or \
-                    brace_scan.launches <= 0 or turbo_step.launches != 0:
+                    got["kernel.brace_scan"] <= 0 or \
+                    got["kernel.turbo_step"] != 0:
                 raise AssertionError(
                     f"phase 10 {name}: general-engine launches {len(runs)}, "
-                    f"DeviceProgramRuns {len(menus)}, brace-scan launches "
-                    f"{brace_scan.launches}, turbo launches "
-                    f"{turbo_step.launches}")
+                    f"DeviceProgramRuns {len(menus)}, counters {dict(got)}")
             route = "DeviceProgramRun" if batch == 1 else "general engine"
             log(f"phase 10 cli {name}: --engine device --batch {batch} "
                 f"printed {port!r}, as the host CLI, through the {route} "
-                f"({len(runs)} launches, {brace_scan.launches} brace-scan "
-                f"launches)")
+                f"({len(runs)} launches, {got['kernel.brace_scan']} "
+                f"brace-scan launches)")
 
 
 def timed_on(fn, batch, launches: int, devices,
@@ -1398,8 +1363,7 @@ def phase11(card: str, tmp: str, n: int = 131_072,
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager
     from interpolation_engine_tpu_torch.ops.turbo_step import (
-        sharded_turbo_step, sharded_turbo_step_reference, turbo_step,
-        turbo_step_reference)
+        sharded_turbo_step_reference)
     from interpolation_engine_tpu_torch.parallel.mesh import (
         make_mesh, shard_turbo_batch, unshard)
     from interpolation_engine_tpu_torch.vm.turbo import (
@@ -1471,29 +1435,25 @@ def phase11(card: str, tmp: str, n: int = 131_072,
     eng = TurboEngine(compile_src(src40), tcfg, mesh=mesh)
     batch = eng.make_batch(n)
     sync_all()
-    for fn in (sharded_turbo_step, sharded_turbo_step_reference, turbo_step,
-               turbo_step_reference):
-        fn.launches = 0
-    t0 = time.perf_counter()
-    final = eng.run(batch)
-    sync_all()
-    elapsed = time.perf_counter() - t0
-    launches = sharded_turbo_step.launches
-    if launches <= 0 or sharded_turbo_step_reference.launches != 0 or \
-            turbo_step_reference.launches != 0 or \
-            turbo_step.launches != launches * len(mesh):
-        raise AssertionError(
-            f"phase 11: sharded launches {launches}, shard kernel launches "
-            f"{turbo_step.launches}, plain versions "
-            f"{sharded_turbo_step_reference.launches} and "
-            f"{turbo_step_reference.launches}")
+    with counts() as got:
+        t0 = time.perf_counter()
+        final = eng.run(batch)
+        sync_all()
+        elapsed = time.perf_counter() - t0
+    # a sharded launch is one kernel launch on each shard
+    on_main_path("phase 11", got, "turbo_step")
+    shards = got["kernel.turbo_step"]
+    launches = shards // len(mesh)
+    if shards % len(mesh):
+        raise AssertionError(f"phase 11: {shards} shard launches over "
+                             f"{len(mesh)} shards")
     flat = unshard(final)
     check_all_done("phase 11", eng, flat, host)
     total = int(flat.regs[:, C_STEPS].long().sum())
     del batch, final, flat
     log(f"phase 11 adventure main path over the mesh [{card}]: {n} "
         f"instances DONE with the host's output and inserts, {launches} "
-        f"sharded launches ({turbo_step.launches} shard launches), "
+        f"sharded launches ({shards} shard launches), "
         f"{eng.ring_stats['parks']} parks, {total} steps in {elapsed:.3f} s "
         f"= {total / elapsed:.1f} tasks/s end to end")
 
@@ -1663,23 +1623,22 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
             return batch
         return held
 
-    turbo_step.launches = turbo_step_reference.launches = 0
     TurboEngine.step_fn = step_fn
     try:
-        with warp_rows() as warp:
+        with counts() as got:
             final, elapsed, exact, _ = ring_run(eng, n)
     finally:
         TurboEngine.step_fn = make
     # the ring's launches, before the sibling's are timed below
-    launches, warp_launches = turbo_step.launches, warp["launches"]
+    on_main_path("phase 13", got, "turbo_step", plain=checked)
+    launches = got["kernel.turbo_step"]
+    warp_launches = got["turbo.warp_row_launches"]
     promoted = list(range(0, n, every))
     if sorted(eng._escape_results) != promoted or exact != 0 or \
-            sib["held"] != checked or \
-            turbo_step_reference.launches != checked:
+            sib["held"] != checked:
         raise AssertionError(
             f"phase 13: {len(eng._escape_results)} instances promoted, "
-            f"{exact} exact services, {sib['held']} sibling launches held, "
-            f"{turbo_step_reference.launches} plain launches")
+            f"{exact} exact services, {sib['held']} sibling launches held")
     res = eng.results(final)
     for i, r in enumerate(res):
         if summary(r) != want[i % every == 0]:
@@ -1712,8 +1671,8 @@ def phase13(card: str, tmp: str, n: int = 16_384, every: int = 16,
         f"bound {sib_bound['bound_ms']:.4f} ms ({sib_bound['bound_by']}), "
         f"the kernel at {sib_bound['bound_ms'] / k_ms * 100:.1f} % of it; "
         f"{tile_line(tables, first, wide.tile)}")
-    return {"ring_s": elapsed, "sibling_ms": k_ms, "launches": launches,
-            "warp_launches": warp_launches, "max_abs_err": sib["worst"]}
+    return {"ring_s": elapsed, "sibling_ms": k_ms, "counts": got,
+            "max_abs_err": sib["worst"]}
 
 
 def host_with_choice(src: str, tmp: str, pick: int) -> dict:
@@ -1837,22 +1796,13 @@ def phase14(card: str, tmp: str, n: int = 131_072) -> None:
     runner.launch = counted
     batch = runner.make_instances(n)
     torch.cuda.synchronize()
-    scan_mod.brace_scan.launches = 0
-    scan_mod.brace_scan_reference.launches = 0
-    mw_reset()
-    t0 = time.perf_counter()
-    final = runner.run(batch, inner_steps=inner)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    mw_launches = mw_collect("phase 14")
-    if min(mw_launches.values()) <= 0:
-        raise AssertionError(f"phase 14: M and W launches {mw_launches}")
-    scans = scan_mod.brace_scan.launches
-    if scans <= 0 or scan_mod.brace_scan_reference.launches != 0:
-        raise AssertionError(
-            f"phase 14: the run launched the brace-scan kernel {scans} "
-            f"times and the plain version "
-            f"{scan_mod.brace_scan_reference.launches} times")
+    with counts() as got:
+        t0 = time.perf_counter()
+        final = runner.run(batch, inner_steps=inner)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    on_main_path("phase 14", got, "brace_scan", "math_eval",
+                 "wildcard_match")
     host = final.to_numpy()
     picks = np.asarray([tp.general_ops_choice(i + 1) for i in range(n)])
     check_groups("phase 14", host, {k: np.nonzero(picks == k)[0]
@@ -1865,12 +1815,13 @@ def phase14(card: str, tmp: str, n: int = 131_072) -> None:
         f"bit-identical to the plain version; then {n} instances to DONE, "
         f"each equal to the host (random_choice by the JAX LCG from rng = "
         f"row + 1): {steps} steps in {len(launches)} launches x {inner} "
-        f"steps, {elapsed:.3f} s = {steps / elapsed:.1f} tasks/s; {scans} "
-        f"brace-scan launches, M and W {json.dumps(mw_launches)}; "
+        f"steps, {elapsed:.3f} s = {steps / elapsed:.1f} tasks/s; "
+        f"{got['kernel.brace_scan']} brace-scan launches, M and W "
+        f"{json.dumps(mw_launches(got))}; "
         f"ring_stats {json.dumps(runner.ring_stats)}")
     log(f"phase 14 torch calls per step by handler (4,096 instances): "
         f"{json.dumps(torch_calls)}")
-    return {"mw_max_abs_err": mw.worst}
+    return {"counts": got, "mw_max_abs_err": mw.worst}
 
 
 def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
@@ -1882,10 +1833,6 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
     from interpolation_engine_tpu_torch import bench
     import torch
     from interpolation_engine_tpu_torch._shared import io_manager as iom
-    from interpolation_engine_tpu_torch.ops.brace_scan import (
-        brace_scan, brace_scan_reference)
-    from interpolation_engine_tpu_torch.ops.turbo_step import (
-        sharded_turbo_step, turbo_step, turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
         DONE, TurboConfig, TurboEngine)
     src = bench.race_io_program(t_max=3)
@@ -1901,33 +1848,25 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
     n_cards = torch.cuda.device_count()
     mesh = ([f"cuda:{d}" for d in range(n_cards)] if n_cards > 1
             else ["cuda:0"] * 4)
-    mw_reset()
+    total = Counter()
     for label, size, kw in (("one card", n, {"device": "cuda"}),
                             (f"mesh of {len(mesh)} shards", n_mesh,
                              {"mesh": mesh})):
         eng = TurboEngine(compile_src(src), tcfg, io_factory=lambda i:
                           iom.IOManager(iom.ScriptedBackend(
                               list(answers[i % every == 0]))), **kw)
-        for fn in (turbo_step, turbo_step_reference, sharded_turbo_step,
-                   brace_scan, brace_scan_reference):
-            fn.launches = 0
-        final, elapsed, exact, _ = ring_run(eng, size)
+        with counts() as got:
+            final, elapsed, exact, _ = ring_run(eng, size)
+        total.update(got)
         escaped = list(range(0, size, every))
-        step_kernel = (sharded_turbo_step if "mesh" in kw
-                       else turbo_step).launches
         if sorted(eng._escape_results) != escaped or \
                 eng.ring_stats["escapes"] != len(escaped) or \
-                len(eng.escape_runners) != 1 or step_kernel <= 0 or \
-                brace_scan.launches <= 0 or \
-                turbo_step_reference.launches != 0 or \
-                brace_scan_reference.launches != 0:
+                len(eng.escape_runners) != 1:
             raise AssertionError(
                 f"phase 15 {label}: {len(eng._escape_results)} escaped, "
                 f"escapes {eng.ring_stats['escapes']}, "
-                f"{len(eng.escape_runners)} runners, step kernel "
-                f"{step_kernel}, brace scan {brace_scan.launches}, plain "
-                f"{turbo_step_reference.launches} and "
-                f"{brace_scan_reference.launches}")
+                f"{len(eng.escape_runners)} runners")
+        on_main_path(f"phase 15 {label}", got, "turbo_step", "brace_scan")
         for i, r in enumerate(eng.results(final)):
             if (r.output, r.inserts, r.status) != want[i % every == 0]:
                 raise AssertionError(f"phase 15 {label}: instance {i}: "
@@ -1941,9 +1880,9 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
             f"batch (max_str {runner.cfg.max_str}, arena "
             f"{runner.cfg.arena_size} bytes) on {runner.device}; every "
             f"instance DONE equal to the host (steps {steps}); "
-            f"{fast_split(eng)}; {step_kernel} step-kernel and "
-            f"{brace_scan.launches} brace-scan launches in {elapsed:.3f} "
-            f"s; the escape runner's ring_stats "
+            f"{fast_split(eng)}; {got['kernel.turbo_step']} step-kernel "
+            f"and {got['kernel.brace_scan']} brace-scan launches in "
+            f"{elapsed:.3f} s; the escape runner's ring_stats "
             f"{json.dumps(runner.ring_stats)}")
     # a program of 151 byte rows at the same width: one instance of its
     # 2048-wide sibling does not fit a block's shared memory, so no sibling
@@ -1961,17 +1900,18 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
                       iom.IOManager(iom.ScriptedBackend(
                           list(answers[i % every == 0]))), device="cuda")
     tile = tile_line(eng.tables, eng.make_batch(1), tcfg.tile)
-    turbo_step.launches = 0
-    final, elapsed, _, _ = ring_run(eng, size)
+    with counts() as got:
+        final, elapsed, _, _ = ring_run(eng, size)
+    total.update(got)
     escaped = list(range(0, size, every))
     if eng._wide_tcfg() is not None or \
             sorted(eng._escape_results) != escaped or \
-            len(eng.escape_runners) != 1 or turbo_step.launches <= 0:
+            len(eng.escape_runners) != 1:
         raise AssertionError(
             f"phase 15 many rows: sibling {eng._wide_tcfg()}, "
             f"{len(eng._escape_results)} escaped, "
-            f"{len(eng.escape_runners)} runners, step kernel "
-            f"{turbo_step.launches}")
+            f"{len(eng.escape_runners)} runners")
+    on_main_path("phase 15 many rows", got, "turbo_step")
     for i, r in enumerate(eng.results(final)):
         if (r.output, r.inserts, r.status) != want[i % every == 0]:
             raise AssertionError(f"phase 15 many rows: instance {i}: "
@@ -1982,10 +1922,11 @@ def phase15(card: str, tmp: str, n: int = 16_384, every: int = 16,
         f"sibling; {size} instances, every {every}th answering 600 bytes: "
         f"{len(escaped)} escaped to one general-engine batch on "
         f"{eng.escape_runners[0].device}, every instance DONE equal to the "
-        f"host, {turbo_step.launches} step-kernel launches, {elapsed:.3f} s")
-    mw_launches = mw_collect("phase 15")
+        f"host, {got['kernel.turbo_step']} step-kernel launches, "
+        f"{elapsed:.3f} s")
     log(f"phase 15 M and W launches on the escape runners: "
-        f"{json.dumps(mw_launches)}")
+        f"{json.dumps(mw_launches(total))}")
+    return {"counts": total}
 
 
 def run_host_from(src: str, state: dict, io, tmp: str) -> dict:
@@ -2038,35 +1979,26 @@ def phase16(card: str, tmp: str, n: int = 131_072,
         C_PARMODE, C_STEPS, DONE, TurboConfig, TurboEngine)
     tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
                        elem_width=32)   # phase 5's
-    launches = warp_launches = 0
-    groups = {"launches": 0, "compared": 0, "moved": 0, "worst": 0}
+    ran = Counter()
+    groups = {"compared": 0, "moved": 0, "worst": 0}
 
     def counted_run(eng, batch):
-        nonlocal launches, warp_launches
-        turbo_step.launches = turbo_step_reference.launches = 0
-        regroup.launches = 0
         sync_all()
-        with CheckedRegroup("phase 16") as checked, warp_rows() as warp:
+        with CheckedRegroup("phase 16") as checked, counts() as got:
             t0 = time.perf_counter()
             final = eng.run(batch)
             sync_all()
             elapsed = time.perf_counter() - t0
-        if turbo_step.launches <= 0 or turbo_step_reference.launches:
-            raise AssertionError(
-                f"phase 16: the run launched the kernel {turbo_step.launches}"
-                f" times, the plain version "
-                f"{turbo_step_reference.launches}")
+        on_main_path("phase 16", got, "turbo_step")
+        launches = got["kernel.turbo_step"]
         tile = launch_plan(eng.tables, batch, eng.tcfg.tile).tile
-        if regroup.launches != checked.compared or checked.compared != (
-                turbo_step.launches if regroups(batch.regs.shape[0], tile,
-                                                sm_count(batch.regs.device))
-                else 0):
+        if got["kernel.regroup"] != checked.compared or checked.compared != (
+                launches if regroups(batch.regs.shape[0], tile,
+                                     sm_count(batch.regs.device)) else 0):
             raise AssertionError(
-                f"phase 16: {regroup.launches} regroups, {checked.compared} "
-                f"compared, over {turbo_step.launches} launches")
-        launches += turbo_step.launches
-        warp_launches += warp["launches"]
-        groups["launches"] += regroup.launches
+                f"phase 16: {got['kernel.regroup']} regroups, "
+                f"{checked.compared} compared, over {launches} launches")
+        ran.update(got)
         groups["compared"] += checked.compared
         groups["moved"] += checked.moved
         groups["worst"] = max(groups["worst"], checked.worst)
@@ -2211,10 +2143,9 @@ def phase16(card: str, tmp: str, n: int = 131_072,
     log(f"phase 16 regroups [{card}]: {groups['compared']} over the three "
         f"runs, each equal to its plain version, {groups['moved']} not the "
         f"identity")
-    return {"launches": launches, "warp_launches": warp_launches,
-            "max_abs_err": worst, "states": exported, "hosts": hosts,
-            "regroup": {"launches": groups["launches"],
-                        "max_abs_err": groups["worst"], "ms": group_ms,
+    return {"counts": ran, "max_abs_err": worst, "states": exported,
+            "hosts": hosts,
+            "regroup": {"max_abs_err": groups["worst"], "ms": group_ms,
                         "plain_ms": group_plain_ms,
                         "library_ms": group_plain_ms, **group_bound}}
 
@@ -2241,20 +2172,19 @@ def phase17(card: str, tmp: str, states: list, hosts: dict,
     picked = states[::max(len(states) // n, 1)][:n]
     batch = vs.stack_rows([runner.load_state(st) for st in picked], "cuda")
     checked = CheckedScan(scan_mod.brace_scan, scan_mod.brace_scan_reference)
-    scan_mod.brace_scan.launches = scan_mod.brace_scan_reference.launches = 0
-    mw_reset()
     ik.scan_mod = type("ScanHook", (), {"brace_scan": checked})
     try:
-        checked.check = True
-        batch = runner.launch(batch, 8)
-        torch.cuda.synchronize()
-        checked.check = False
-        if checked.compared == 0:
-            raise AssertionError("phase 17: no brace-scan call compared")
-        t0 = time.perf_counter()
-        final = runner.run(batch)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+        with counts() as got:
+            checked.check = True
+            batch = runner.launch(batch, 8)
+            torch.cuda.synchronize()
+            checked.check = False
+            if checked.compared == 0:
+                raise AssertionError("phase 17: no brace-scan call compared")
+            t0 = time.perf_counter()
+            final = runner.run(batch)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
     finally:
         ik.scan_mod = scan_mod
     for st, r in zip(picked, runner.results(final)):
@@ -2309,8 +2239,9 @@ def phase17(card: str, tmp: str, states: list, hosts: dict,
             if drive is not None:
                 await drive(run, backend)
             return await task
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), counts() as menu:
             asyncio.run(main())
+        got.update(menu)
         return run, out.getvalue()
 
     first, printed = menu_run(["u0", "1", "1", "slot-a", "4"], 2)
@@ -2332,17 +2263,15 @@ def phase17(card: str, tmp: str, states: list, hosts: dict,
     if printed != host["output"].strip() + "\n":
         raise AssertionError(f"phase 17 menu: the loaded run printed "
                              f"{printed!r}, the host {host['output']!r}")
-    launches = scan_mod.brace_scan.launches
-    if launches <= 0 or \
-            scan_mod.brace_scan_reference.launches != checked.compared:
-        raise AssertionError(f"phase 17: brace-scan launches {launches}, "
-                             f"plain {scan_mod.brace_scan_reference.launches}")
+    # the plain scans are the first launch's checks
+    on_main_path("phase 17", got, "brace_scan", plain=checked.compared)
     log(f"phase 17 device menu [{card}]: Save State at the second input "
         f"(slot 1, {json.dumps(saves['1'])}) and Quit printed "
         f"{'hi;[u0!]'!r}; a fresh run's Load State of slot 1 then printed "
-        f"{printed.strip()!r}, as the host; {launches} brace-scan launches "
-        f"in phase 17, M and W {json.dumps(mw_collect('phase 17'))}")
-    return {"launches": launches, "max_abs_err": checked.worst}
+        f"{printed.strip()!r}, as the host; {got['kernel.brace_scan']} "
+        f"brace-scan launches in phase 17, M and W "
+        f"{json.dumps(mw_launches(got))}")
+    return {"counts": got, "max_abs_err": checked.worst}
 
 
 def phase18(card: str, tmp: str, n: int = 131_072,
@@ -2375,8 +2304,6 @@ def phase18(card: str, tmp: str, n: int = 131_072,
             devices.append(bufs.device)
             return scan_mod.brace_scan(bufs, lengths)
 
-    scan_mod.brace_scan.launches = scan_mod.brace_scan_reference.launches = 0
-    mw_reset()
     one = runner.make_instances(n)
     many = shard_batch(one, mesh)
     inner, times = 8, {"one": [], "sharded": []}
@@ -2411,10 +2338,11 @@ def phase18(card: str, tmp: str, n: int = 131_072,
     src = tp.WAIT_SRC
     ring = DeviceRunner(compile_src(src), cfg, io_factory=answers,
                         device=mesh[0])
-    t0 = time.perf_counter()
-    final = ring.run(shard_batch(ring.make_instances(n_ring), mesh))
-    sync_all()
-    ring_s = time.perf_counter() - t0
+    with counts() as ran:
+        t0 = time.perf_counter()
+        final = ring.run(shard_batch(ring.make_instances(n_ring), mesh))
+        sync_all()
+        ring_s = time.perf_counter() - t0
     ref = DeviceRunner(compile_src(src), cfg, io_factory=answers,
                        device=mesh[0])
     ref_final = ref.run(ref.make_instances(n_ring))
@@ -2434,9 +2362,7 @@ def phase18(card: str, tmp: str, n: int = 131_072,
         if r.status != vm_config.DONE or \
                 r.output != f"a;t0;x=x{i};t1;y=y{i};z":
             raise AssertionError(f"phase 18: instance {i}: {r}")
-    launches = scan_mod.brace_scan.launches
-    if launches <= 0 or scan_mod.brace_scan_reference.launches:
-        raise AssertionError(f"phase 18: brace-scan launches {launches}")
+    on_main_path("phase 18", ran, "brace_scan")
 
     def ms(ts):
         return " and ".join(f"{t * 1e3:.3f}" for t in ts)
@@ -2448,9 +2374,10 @@ def phase18(card: str, tmp: str, n: int = 131_072,
     log(f"phase 18 sharded ring [{card}]: parallel_wait at {n_ring} "
         f"instances, each answering its own inputs, to DONE over the mesh "
         f"in {ring_s:.3f} s, field for field the unsharded run, outputs "
-        f"the host's; ring_stats {json.dumps(ring.ring_stats)}; M and W "
-        f"launches {json.dumps(mw_collect('phase 18'))}")
-    return {"launches": launches, "ms_one": times["one"],
+        f"the host's; ring_stats {json.dumps(ring.ring_stats)}; "
+        f"{ran['kernel.brace_scan']} brace-scan launches, M and W "
+        f"{json.dumps(mw_launches(ran))}")
+    return {"counts": ran, "ms_one": times["one"],
             "ms_sharded": times["sharded"]}
 
 
@@ -2587,7 +2514,6 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
     from interpolation_engine_tpu_torch.core.filters import (
         InvertedFilter, OutputFilter)
     from interpolation_engine_tpu_torch.ops import filter_kernel as fk
-    from interpolation_engine_tpu_torch.ops.turbo_step import turbo_step
     from interpolation_engine_tpu_torch.vm.turbo import (
         DONE, TurboConfig, TurboEngine)
 
@@ -2635,14 +2561,14 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
             raise AssertionError(f"phase 19: stream {r}: the kernel's result "
                                  f"is not the host filters'")
     t_sample = time.perf_counter() - t0
-    oracle = fk.filter_chat_host.oracle_calls
-    for r in over:
-        raw = raws[r].decode("utf-8", "replace")
-        if fk.filter_chat_host(raw, start, stop, hs, he, True) != \
-                fk._char_oracle(raw, start, stop, hs, he, True):
-            raise AssertionError(f"phase 19: stream {r} (past 16 spans) is "
-                                 f"not the host oracle's")
-    if fk.filter_chat_host.oracle_calls - oracle != len(over):
+    with counts() as oracle:
+        for r in over:
+            raw = raws[r].decode("utf-8", "replace")
+            if fk.filter_chat_host(raw, start, stop, hs, he, True) != \
+                    fk._char_oracle(raw, start, stop, hs, he, True):
+                raise AssertionError(f"phase 19: stream {r} (past 16 spans) "
+                                     f"is not the host oracle's")
+    if oracle["host.chat_filter"] != len(over):
         raise AssertionError("phase 19: the streams past 16 spans did not "
                              "take the host oracle")
     del main
@@ -2734,8 +2660,6 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
     def recording_host(raw, *args):
         service_calls.setdefault((raw, *args), None)
         return real_host(raw, *args)
-    # the wrapped function counts its oracle calls under its module name
-    recording_host.oracle_calls = real_host.oracle_calls
     launches, seconds = 0, {}
     old_flag = os.environ.pop("IE_TPU_DEVICE_FILTERS", None)
     fk.filter_chat_host = recording_host
@@ -2756,21 +2680,18 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
                     batch = eng.make_batch(instances)
                     requests = len(server.requests)
                     torch.cuda.synchronize()
-                    fk.filter_chat_text.launches = 0
-                    fk.filter_chat_reference.launches = 0
-                    turbo_step.launches = 0
-                    t0 = time.perf_counter()
-                    final = eng.run(batch)
-                    torch.cuda.synchronize()
-                    elapsed = time.perf_counter() - t0
+                    with counts() as ran:
+                        t0 = time.perf_counter()
+                        final = eng.run(batch)
+                        torch.cuda.synchronize()
+                        elapsed = time.perf_counter() - t0
                     chats = len(server.requests) - requests
-                    got = fk.filter_chat_text.launches
-                    if got != (chats if flag else 0) or \
-                            fk.filter_chat_reference.launches:
+                    got = ran["kernel.chat_filter"]
+                    if got != (chats if flag else 0):
                         raise AssertionError(
                             f"phase 19 {name}: {chats} chat calls, "
-                            f"{got} filter launches, "
-                            f"{fk.filter_chat_reference.launches} plain")
+                            f"{got} filter launches")
+                    on_main_path(f"phase 19 {name}", ran, "turbo_step")
                     if eng.ring_stats["escapes"]:
                         raise AssertionError(f"phase 19 {name}: escapes")
                     for i, r in enumerate(eng.results(final)):
@@ -2783,12 +2704,12 @@ def phase19(card: str, tmp: str, n: int = 16_384, L: int = 8192,
                     log(f"phase 19 chat program {name}, filter "
                         f"{'on' if flag else 'off'} [{card}]: {instances} "
                         f"instances DONE equal to the host, {chats} chat "
-                        f"calls, {got} filter launches, {turbo_step.launches}"
-                        f" step launches, {elapsed:.3f} s; ring_stats "
+                        f"calls, {got} filter launches, "
+                        f"{ran['kernel.turbo_step']} step launches, "
+                        f"{elapsed:.3f} s; ring_stats "
                         f"{json.dumps(eng.ring_stats)}")
     finally:
         fk.filter_chat_host = real_host
-        real_host.oracle_calls = recording_host.oracle_calls
         if old_flag is None:
             os.environ.pop("IE_TPU_DEVICE_FILTERS", None)
         else:
@@ -2860,47 +2781,31 @@ def check_bench_line(line: dict, workload: str, engine: str,
 
 def phase20(card: str, n: int = 131_072) -> dict:
     """The port's bench: each of PERF.md's cells in process, the kernels
-    counted; the default run as ``python -m
+    counted (a run is one call, its warm launch and its timed rounds, so
+    these lines are taken while recording); the default run as ``python -m
     interpolation_engine_tpu_torch.bench``, its executed steps held to the
     plain step version's over the same launches from the same batch."""
     import torch
     from interpolation_engine_tpu_torch import bench
-    from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
     from interpolation_engine_tpu_torch.ops.turbo_step import (
-        regroup, turbo_step, turbo_step_reference)
+        turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import TurboEngine
 
     torch.cuda.synchronize()
-    kernels = (turbo_step, turbo_step_reference, scan_mod.brace_scan,
-               scan_mod.brace_scan_reference)
-    for fn in kernels + (regroup,):
-        fn.launches = 0
-    warp_launches = 0
-    mw_reset()
+    total = Counter()
     for workload, engine, env in BENCH_RUNS:
-        # the turbo runs recorded, for their warp launches; the general
-        # engine launches no step kernel
-        with bench_env(env), (warp_rows() if engine == "turbo" else
-                              contextlib.nullcontext({})) as warp:
+        with bench_env(env), counts() as got:
             t0 = time.perf_counter()
             run = bench.measure()
-        warp_launches += warp.get("launches", 0)
+        total.update(got)
         check_bench_line(run.line, workload, engine, n)
         log(f"bench: {json.dumps(run.line)} ({card}; {env}, executed "
             f"{run.executed} in {run.elapsed:.3f} s, warm launch "
             f"{run.compile_s:.3f} s, the run {time.perf_counter() - t0:.1f} "
             f"s)")
-    step_launches, plain_steps, scan_launches, plain_scans = (
-        fn.launches for fn in kernels)
-    regroup_launches = regroup.launches
     log(f"phase 20 M and W launches in the bench runs: "
-        f"{json.dumps(mw_collect('phase 20'))}")
-    if step_launches <= 0 or scan_launches <= 0 or plain_steps or \
-            plain_scans:
-        raise AssertionError(
-            f"phase 20: the bench launched the step kernel {step_launches} "
-            f"times (plain {plain_steps}), the brace scan {scan_launches} "
-            f"(plain {plain_scans})")
+        f"{json.dumps(mw_launches(total))}")
+    on_main_path("phase 20", total, "turbo_step", "brace_scan")
     with bench_env({}):
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -2939,9 +2844,7 @@ def phase20(card: str, n: int = 131_072) -> dict:
                            device="cuda")
     log(f"phase 20 adventure at width 512: "
         f"{tile_line(wide.tables, wide.make_batch(n), wide.tcfg.tile)}")
-    return {"step_launches": step_launches, "warp_launches": warp_launches,
-            "scan_launches": scan_launches,
-            "regroup_launches": regroup_launches}
+    return {"counts": total}
 
 
 MATH_NUMBERS = ("0", "1", "2", "3", "7", "9", "10", "31", "32", "99",
@@ -3108,19 +3011,16 @@ def mw_attributes(card: str) -> str:
     """M and W's registers, stack bytes and shared bytes a block (at MS
     96; W per row and shared, max_stars 2 and 64)."""
     import ctypes
-    from interpolation_engine_tpu_torch.ops import build
-    lib = build.load()
+    from interpolation_engine_tpu_torch.ops.build import call
     out = (ctypes.c_int * 4)()
-    rc = lib.math_eval_attributes(96, out)
+    call("math_eval_attributes", 96, out)
     parts = [f"M {out[0]} registers, {out[1]} stack bytes, {out[2]} shared "
              f"bytes a block of {out[3]}"]
     for shared, stars in ((0, 2), (1, 2), (0, 64)):
-        rc = rc or lib.wildcard_match_attributes(96, 96, shared, stars, out)
+        call("wildcard_match_attributes", 96, 96, shared, stars, out)
         parts.append(f"W {'shared' if shared else 'per-row'} max_stars "
                      f"{stars}: {out[0]} registers, {out[1]} stack bytes, "
                      f"{out[2]} shared bytes")
-    if rc:
-        raise AssertionError(f"phase 21: attributes failed, CUDA error {rc}")
     return f"phase 21 attributes [{card}]: " + "; ".join(parts)
 
 
@@ -3202,7 +3102,7 @@ def phase22(card: str, n: int = 131_072, checked: int = 2) -> dict:
     torch.cuda.synchronize()
     kern, ref = clone(b0), clone(b0)
     worst = 0
-    with warp_rows() as warp:
+    with counts() as got:
         for launch in range(checked):
             turbo_step(eng.tables, kern, K)
             turbo_step_reference(eng.tables, ref, K)
@@ -3211,9 +3111,9 @@ def phase22(card: str, n: int = 131_072, checked: int = 2) -> dict:
             if worst:
                 raise AssertionError(f"phase 22: kernel and plain version "
                                      f"differ after launch {launch + 1}")
-    if warp["launches"] != checked:
-        raise AssertionError(f"phase 22: {warp['launches']} of {checked} "
-                             f"launches a warp a row")
+    if got["turbo.warp_row_launches"] != checked:
+        raise AssertionError(f"phase 22: {got['turbo.warp_row_launches']} "
+                             f"of {checked} launches a warp a row")
     steps = int((kern.regs[:, C_STEPS] - b0.regs[:, C_STEPS]).long().sum())
     del kern, ref
     launch_bound = step_bound(eng.tables, b0, steps // checked)
@@ -3227,9 +3127,10 @@ def phase22(card: str, n: int = 131_072, checked: int = 2) -> dict:
     del staged
     log(f"phase 22 prompt-chain, {n} rows resumed from {len(states)} "
         f"states [{card}]: the first {checked} launches x {K} steps, "
-        f"{warp['launches']} of them a warp a row (turbo.warp_row_launches),"
-        f" bit-identical to the plain version; kernel {per_k[K]:.3f} "
-        f"ms/launch at K={K}, {per_k[1]:.3f} at K=1 (queued), the staging "
+        f"{got['turbo.warp_row_launches']} of them a warp a row "
+        f"(turbo.warp_row_launches), bit-identical to the plain version; "
+        f"kernel {per_k[K]:.3f} ms/launch at K={K}, {per_k[1]:.3f} at K=1 "
+        f"(queued), the staging "
         f"alone {stage_ms:.3f}; bound {launch_bound['bound_ms']:.4f} ms "
         f"({launch_bound['bound_by']}), the kernel at "
         f"{launch_bound['bound_ms'] / per_k[K] * 100:.2f} % of it; "
@@ -3318,7 +3219,7 @@ def main(argv=None) -> int:
         phase12(card, tmp, race_io)
         promoted = phase13(card, tmp)
         general_ops = phase14(card, tmp)
-        phase15(card, tmp)
+        escaped = phase15(card, tmp)
         t_resume = time.perf_counter()
         resumed = phase16(card, tmp)
         general_resumed = phase17(card, tmp, resumed["states"],
@@ -3333,26 +3234,29 @@ def main(argv=None) -> int:
         log(f"phase 20 {time.perf_counter() - t_bench:.1f} s")
         alone = phase21(card)
         chain = phase22(card)
-    # the launches of phases 13's, 16-18's and 20's paths join their
-    # kernels' counts, those that stepped a row with a warp counted apart;
-    # phase 22's launches are checks and timings, its deviation counts
-    paths = (resumed, dict(benched, launches=benched["step_launches"]),
-             promoted)
-    for counted in ("launches", "warp_launches"):
-        main_path[counted] += sum(p[counted] for p in paths)
-    main_path["max_abs_err"] = max(worst, main_path["max_abs_err"],
-                                   chain["max_abs_err"],
-                                   *(p["max_abs_err"] for p in paths
-                                     if "max_abs_err" in p))
+
+    def launches(counter: str, *phases) -> int:
+        return sum(p["counts"][counter] for p in phases)
+
+    # the step kernel's launches on phases 5, 13, 16 and 20's main paths,
+    # those that stepped a row with a warp counted apart; phase 22's
+    # launches are checks and timings, its deviation counts
+    paths = (main_path, promoted, resumed, benched)
+    main_path.update(
+        launches=launches("kernel.turbo_step", *paths),
+        warp_launches=launches("turbo.warp_row_launches", *paths),
+        max_abs_err=max(worst, chain["max_abs_err"],
+                        *(p["max_abs_err"] for p in paths
+                          if "max_abs_err" in p)))
     # the regroup: its launches on phases 5, 16 and 20's main paths, those
     # of 5 and 16 held to the plain version, the times phase 16's
-    regrouped = dict(resumed["regroup"], launches=(
-        main_path.pop("regroup_launches") + resumed["regroup"]["launches"]
-        + benched["regroup_launches"]), max_abs_err=max(
+    regrouped = dict(resumed["regroup"], launches=launches(
+        "kernel.regroup", main_path, resumed, benched), max_abs_err=max(
         main_path.pop("regroup_max_abs_err"),
         resumed["regroup"]["max_abs_err"]))
-    general["launches"] += general_resumed["launches"] + \
-        general_mesh["launches"] + benched["scan_launches"]
+    # the brace scan's launches on phases 8, 17, 18 and 20's general paths
+    scanned = (general, general_resumed, general_mesh, benched)
+    general["launches"] = launches("kernel.brace_scan", *scanned)
     general["max_abs_err"] = max(general["max_abs_err"],
                                  general_resumed["max_abs_err"])
     kernels = [
@@ -3370,13 +3274,16 @@ def main(argv=None) -> int:
     # paths, every call of phases 8 and 14's first two launches held to the
     # plain version, the times phase 21's
     worst = max(general["mw_max_abs_err"], general_ops["mw_max_abs_err"])
+    mw_paths = scanned + (general_ops, escaped)
     kernels += [
         dict(name="math_eval_kernel", source=MATH_SRC,
-             replaces=MATH_REPLACES, launches=MW_LAUNCHES["math"],
-             max_abs_err=worst, **alone["math"]),
+             replaces=MATH_REPLACES, max_abs_err=worst,
+             launches=launches("kernel.math_eval", *mw_paths),
+             **alone["math"]),
         dict(name="wildcard_match_kernel", source=MATCH_SRC,
-             replaces=MATCH_REPLACES, launches=MW_LAUNCHES["match"],
-             max_abs_err=worst, **alone["match"])]
+             replaces=MATCH_REPLACES, max_abs_err=worst,
+             launches=launches("kernel.wildcard_match", *mw_paths),
+             **alone["match"])]
     keys = ("name", "route", "source", "replaces", "launches",
             "warp_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

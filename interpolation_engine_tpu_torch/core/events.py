@@ -124,15 +124,19 @@ class _Span:
 @dataclass
 class Recording:
     """What ``recording()`` collected: ``spans`` as ``(name, thread id,
-    start_us, end_us)`` in the order they ended, and ``counters``."""
+    start_us, end_us)`` in the order they ended, and ``counters``, each
+    added under ``lock`` (the engines count from a thread per device)."""
     spans: list = field(default_factory=list)
     counters: dict = field(default_factory=dict)
+    lock: Any = field(default_factory=threading.Lock, repr=False,
+                      compare=False)
 
 
 class Recorder:
     """Spans and counters taken inside the engines' steps, on ``now_us``'s
     clock. Outside ``recording()`` a site costs one attribute test:
-    ``span`` hands back one shared no-op, ``count`` returns at once."""
+    ``span`` hands back one shared no-op, ``count`` returns at once (no
+    lock, no clock, no dict)."""
 
     recorded: Optional[Recording] = None
 
@@ -147,7 +151,8 @@ class Recorder:
         rec = self.recorded
         if rec is None:
             return
-        rec.counters[name] = rec.counters.get(name, 0) + k
+        with rec.lock:
+            rec.counters[name] = rec.counters.get(name, 0) + k
 
     @contextmanager
     def recording(self):

@@ -15,31 +15,25 @@ be held against the kernel on the card. The two agree bit for bit. They replace 
 TPU kernel ``_scan_kernel`` of ``interpolation_engine_tpu/ops/pallas_scan.py``
 in both its per-string and its batched call.
 
-Each function counts its launches in ``.launches``, under a lock: the
-general engine over a mesh calls them from a worker thread per device.
+A kernel launch counts as ``kernel.brace_scan`` and a call of the plain
+version as ``plain.brace_scan`` in ``EVENTS`` (``core/events.py``).
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from ..core.events import EVENTS
 from ..vm.bytestr import BACKSLASH, BRACE_CLOSE, BRACE_OPEN
-
-
-_COUNT_LOCK = threading.Lock()
 
 
 def kernel_plan(ms: int) -> dict:
     """The kernel's tile for rows of ``ms`` bytes on the current card: rows
     a block, shared bytes a block, and blocks the card keeps on one SM."""
     import ctypes
-    from .build import load
+    from .build import call
     out = (ctypes.c_int * 3)()
-    rc = load().brace_scan_plan(ms, out)
-    if rc != 0:
-        raise RuntimeError(f"brace_scan_plan failed: CUDA error {rc}")
+    call("brace_scan_plan", ms, out)
     return {"rows": out[0], "smem": out[1], "blocks_per_sm": out[2]}
 
 
@@ -69,28 +63,18 @@ def brace_scan(bufs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no brace scan for device {bufs.device}")
     n, ms = bufs.shape
     out = torch.empty((n, 4), dtype=torch.int32, device=bufs.device)
-    from .build import load
-    lib = load()
+    from .build import launch
     with torch.cuda.device(bufs.device):
-        rc = lib.brace_scan_launch(
-            bufs.data_ptr(), lengths.data_ptr(), out.data_ptr(), n, ms,
-            torch.cuda.current_stream(bufs.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"brace_scan_kernel launch failed: CUDA error "
-                           f"{rc} ({lib.turbo_error_string(rc).decode()})")
-    with _COUNT_LOCK:
-        brace_scan.launches += 1
+        launch("brace_scan", bufs.data_ptr(), lengths.data_ptr(),
+               out.data_ptr(), n, ms,
+               torch.cuda.current_stream(bufs.device).cuda_stream)
     return out
-
-
-brace_scan.launches = 0
 
 
 def brace_scan_reference(bufs: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
     """The plain version of the kernel, batched torch on any device."""
-    with _COUNT_LOCK:
-        brace_scan_reference.launches += 1
+    EVENTS.count("plain.brace_scan")
     n, ms = bufs.shape
     if ms == 0:
         out = torch.zeros((n, 4), dtype=torch.int32, device=bufs.device)
@@ -111,6 +95,3 @@ def brace_scan_reference(bufs: torch.Tensor,
     inner = torch.where(inner > ms, -1, inner)
     return torch.stack([n_open, n_close, outer, inner], dim=1).to(
         torch.int32)
-
-
-brace_scan_reference.launches = 0

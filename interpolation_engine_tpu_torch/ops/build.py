@@ -6,6 +6,12 @@ shared library with a plain C interface, under ``_build/`` (git-ignored),
 named by a hash of the sources, the headers they share (``csrc/*.cuh``)
 and the flags, so an edited source never loads a stale build. Nothing here includes PyTorch's headers, so a build takes
 seconds. The library is loaded once per process.
+
+Every entry point that returns a CUDA error code is called through ``call``,
+the one place that turns a nonzero code into an error; a kernel ``<name>``
+is launched through ``launch`` (its entry point ``<name>_launch``), which
+also counts the launch as ``kernel.<name>`` in ``core/events.py``'s
+``EVENTS``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ..core.events import EVENTS
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -117,3 +125,20 @@ def load() -> ctypes.CDLL:
     lib.turbo_error_string.argtypes = [i]
     lib.turbo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def call(name: str, *args) -> None:
+    """``load().<name>(*args)`` for an entry point that returns a CUDA
+    error code; raises ``RuntimeError`` naming it on a nonzero code."""
+    lib = load()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc} "
+                           f"({lib.turbo_error_string(rc).decode()})")
+
+
+def launch(kernel: str, *args) -> None:
+    """``call("<kernel>_launch", *args)``, a launch of ``kernel``, then
+    counted as ``kernel.<kernel>``."""
+    call(f"{kernel}_launch", *args)
+    EVENTS.count(f"kernel.{kernel}")

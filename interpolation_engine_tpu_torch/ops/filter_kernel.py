@@ -25,25 +25,24 @@ site passes ``out_size = 2 L + 256``; past the visual length both are 0).
 spans returns the exact host oracle, as in the JAX package: the kernel ran
 and reported ``raw_n_spans``, but its table holds 16 spans.
 
-Counts: ``filter_chat_text.launches`` (kernel launches),
-``filter_chat_reference.launches`` and ``filter_chat_host.oracle_calls``,
-each under a lock.
+Counts, in ``EVENTS`` (``core/events.py``): ``kernel.chat_filter`` (kernel
+launches), ``plain.chat_filter`` (plain version calls) and
+``host.chat_filter`` (the host oracle's calls from ``filter_chat_host``).
 """
 
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
+
+from ..core.events import EVENTS
 
 MAX_SPANS = 16      # outputs per chat call (n_outputs is small in practice)
 _MARK = 16          # max bytes of one enumeration marker ("\n\n12. ")
 TABLE = 2 * MAX_SPANS + 3   # span_off, span_len, n_spans, raw_n_spans,
 #                             visual_len: int32 a stream
-
-_COUNT_LOCK = threading.Lock()
 
 
 def visual_width(L: int) -> int:
@@ -118,15 +117,13 @@ def kernel_attributes(device) -> dict:
     thread, static shared bytes and threads a block, and the tile (bytes of
     a stream staged at a time)."""
     import ctypes
+    from .build import call
     lib = _library()
     layout = (ctypes.c_int * 3)()
     lib.chat_filter_layout(layout)
     vals = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        rc = lib.chat_filter_attributes(vals)
-    if rc != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error "
-                           f"{rc} ({lib.turbo_error_string(rc).decode()})")
+        call("chat_filter_attributes", vals)
     return dict(zip(("registers", "local_bytes", "static_shared_bytes",
                      "threads", "tile"), (*vals, layout[2])))
 
@@ -153,7 +150,8 @@ def filter_chat_text(bufs, lengths, *, start, stop, hide_start, hide_stop,
         return filter_chat_reference(bufs, lengths, **kw)
     if bufs.device.type != "cuda":
         raise ValueError(f"no chat filter for device {bufs.device}")
-    lib = _library()
+    from .build import launch
+    _library()
     B, L = bufs.shape
     W = visual_width(L)
     dev = bufs.device
@@ -163,20 +161,11 @@ def filter_chat_text(bufs, lengths, *, start, stop, hide_start, hide_stop,
     d = (kw["start"], kw["stop"], kw["hide_start"], kw["hide_stop"])
     blob = _delim_blob(dev, b"".join(d))
     with torch.cuda.device(dev):
-        rc = lib.chat_filter_launch(
-            bufs.data_ptr(), lengths.data_ptr(), B, L, W, blob.data_ptr(),
-            *map(len, d), int(kw["enumerate_outputs"]), ext.data_ptr(),
-            vis.data_ptr(), table.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"chat_filter_kernel launch failed: CUDA error "
-                           f"{rc} ({lib.turbo_error_string(rc).decode()})")
-    with _COUNT_LOCK:
-        filter_chat_text.launches += 1
+        launch("chat_filter", bufs.data_ptr(), lengths.data_ptr(), B, L, W,
+               blob.data_ptr(), *map(len, d), int(kw["enumerate_outputs"]),
+               ext.data_ptr(), vis.data_ptr(), table.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
     return _unpack(ext, vis, table)
-
-
-filter_chat_text.launches = 0
 
 
 def _unpack(ext, vis, table) -> dict:
@@ -275,8 +264,7 @@ def filter_chat_reference(bufs, lengths, *, start: bytes, stop: bytes,
     """The plain version of the kernel, batched torch on any device: JAX's
     two passes, each scan a loop over byte positions (to the longest row)
     vectorized over the rows."""
-    with _COUNT_LOCK:
-        filter_chat_reference.launches += 1
+    EVENTS.count("plain.chat_filter")
     start, stop = _as_bytes(start), _as_bytes(stop)
     hide_start, hide_stop = _as_bytes(hide_start), _as_bytes(hide_stop)
     B, L = bufs.shape
@@ -360,9 +348,6 @@ def filter_chat_reference(bufs, lengths, *, start: bytes, stop: bytes,
             "raw_n_spans": raw_n_spans.to(torch.int32)}
 
 
-filter_chat_reference.launches = 0
-
-
 # ---- one stream, the chat service's call --------------------------------------
 
 def _char_oracle(raw: str, start: str, stop: str, hide_start: str,
@@ -408,14 +393,10 @@ def filter_chat_host(raw: str, start: str, stop: str, hide_start: str,
         hide_start=hide_start.encode(), hide_stop=hide_stop.encode(),
         enumerate_outputs=enumerate_outputs)
     if int(out["raw_n_spans"][0]) > MAX_SPANS:
-        with _COUNT_LOCK:
-            filter_chat_host.oracle_calls += 1
+        EVENTS.count("host.chat_filter")
         return _char_oracle(raw, start, stop, hide_start, hide_stop,
                             enumerate_outputs)
     return decode_row(out, 0)
-
-
-filter_chat_host.oracle_calls = 0
 
 
 def decode_row(out: dict, r: int):

@@ -19,17 +19,18 @@ right-to-left feasibility pass is one integer a star, the rightmost
 feasible position: ``wildcard_match_kernel``) or raises; on CPU
 tensors, and only there, it runs ``wildcard_match_reference``, the plain
 version described above, which works on any device so that it can be held
-against the kernel on the card. Both count their launches in
-``.launches``, under a lock.
+against the kernel on the card. A kernel launch counts as
+``kernel.wildcard_match`` and a call of the plain version as
+``plain.wildcard_match`` in ``EVENTS`` (``core/events.py``).
 """
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import torch
 
+from ..core.events import EVENTS
 from ..vm import bytestr as bs
 
 STAR = 42  # ord('*')
@@ -159,8 +160,6 @@ def _match_at_cut(subj, cut, pat, n_stars, seg_off, seg_len,
     return ok, cap_off, cap_len
 
 
-_COUNT_LOCK = threading.Lock()
-
 # The largest max_stars the kernel takes: MAX_STARS in
 # csrc/wildcard_match.cu (a block's shared scratch is 2 * max_stars words a
 # thread).
@@ -213,33 +212,21 @@ def wildcard_match_kernel(pat, plen, subj, slen,
     out = MatchResult(ok, supported, n_caps, cap_off, cap_len)
     if rows == 0:
         return out
-    from .build import load
-    lib = load()
+    from .build import launch
     with torch.cuda.device(dev):
-        rc = lib.wildcard_match_launch(
-            pat.data_ptr(), plen.data_ptr(), pms, int(n_pat == 1),
-            subj.data_ptr(), slen.data_ptr(), rows, ms, max_stars,
-            ok.data_ptr(), supported.data_ptr(), n_caps.data_ptr(),
-            cap_off.data_ptr(), cap_len.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wildcard_match_kernel launch failed: CUDA "
-                           f"error {rc} "
-                           f"({lib.turbo_error_string(rc).decode()})")
-    with _COUNT_LOCK:
-        wildcard_match_kernel.launches += 1
+        launch("wildcard_match", pat.data_ptr(), plen.data_ptr(), pms,
+               int(n_pat == 1), subj.data_ptr(), slen.data_ptr(), rows, ms,
+               max_stars, ok.data_ptr(), supported.data_ptr(),
+               n_caps.data_ptr(), cap_off.data_ptr(), cap_len.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
     return out
-
-
-wildcard_match_kernel.launches = 0
 
 
 def wildcard_match_reference(pat, plen, subj, slen,
                              max_stars: int) -> MatchResult:
     """The plain version of ``wildcard_match``, batched torch on any
     device."""
-    with _COUNT_LOCK:
-        wildcard_match_reference.launches += 1
+    EVENTS.count("plain.wildcard_match")
     rows = subj.shape[0]
     dev = subj.device
     plen = bs.col(plen, pat.shape[0], dev)
@@ -267,6 +254,3 @@ def wildcard_match_reference(pat, plen, subj, slen,
         n_caps=n_stars.clamp(max=max_stars).to(torch.int32),
         cap_off=torch.where(use_trim[:, None], cot, cof),
         cap_len=torch.where(use_trim[:, None], clt, clf))
-
-
-wildcard_match_reference.launches = 0

@@ -30,19 +30,18 @@ exponent, no min/max over string lists. '%' and '//' floor as Python's do
 minus binds tighter than '*', '/', '%' and looser than '**', which is
 right-associative.
 
-Each launching function counts its launches in ``.launches``, under a lock
-(the general engine over a mesh calls them from a worker thread per
-device): ``math_eval_kernel``, ``eval_flat_reference`` and
-``eval_enum_minmax_reference``.
+A kernel launch counts as ``kernel.math_eval``, and a call of a plain
+version as ``plain.eval_flat`` or ``plain.eval_enum_minmax``, in
+``EVENTS`` (``core/events.py``).
 """
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import torch
 
+from ..core.events import EVENTS
 from ..vm import bytestr as bs
 from ..vm.state import T_INT, T_LIST
 from ..vm.syncs import host_sync
@@ -136,9 +135,6 @@ def _reduce_once(nums, ns, ops, os):
     return nums, new_ns, os - 1, err
 
 
-_COUNT_LOCK = threading.Lock()
-
-
 def math_eval_kernel(buf: torch.Tensor, length,
                      want_max=None) -> EvalResult:
     """Launch ``csrc/math_eval.cu`` on CUDA rows: the flat evaluator, or
@@ -168,23 +164,13 @@ def math_eval_kernel(buf: torch.Tensor, length,
     value = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows == 0:
         return EvalResult(err, value)
-    from .build import load
-    lib = load()
+    from .build import launch
     with torch.cuda.device(dev):
-        rc = lib.math_eval_launch(
-            buf.data_ptr(), length.data_ptr(),
-            None if want_max is None else want_max.data_ptr(), rows, ms,
-            err.data_ptr(), value.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"math_eval_kernel launch failed: CUDA error "
-                           f"{rc} ({lib.turbo_error_string(rc).decode()})")
-    with _COUNT_LOCK:
-        math_eval_kernel.launches += 1
+        launch("math_eval", buf.data_ptr(), length.data_ptr(),
+               None if want_max is None else want_max.data_ptr(), rows, ms,
+               err.data_ptr(), value.data_ptr(),
+               torch.cuda.current_stream(dev).cuda_stream)
     return EvalResult(err, value)
-
-
-math_eval_kernel.launches = 0
 
 
 def eval_flat(buf: torch.Tensor, length) -> EvalResult:
@@ -198,8 +184,7 @@ def eval_flat(buf: torch.Tensor, length) -> EvalResult:
 
 def eval_flat_reference(buf: torch.Tensor, length) -> EvalResult:
     """The plain version of ``eval_flat``, batched torch on any device."""
-    with _COUNT_LOCK:
-        eval_flat_reference.launches += 1
+    EVENTS.count("plain.eval_flat")
     rows, n = buf.shape
     dev = buf.device
     length = bs.col(length, rows, dev).to(torch.int64)
@@ -310,9 +295,6 @@ def eval_flat_reference(buf: torch.Tensor, length) -> EvalResult:
     return EvalResult(err.to(torch.int32), bs.to_i32(nums[:, 0]))
 
 
-eval_flat_reference.launches = 0
-
-
 # ---------------------------------------------------------------------------
 # paren reduction and function dispatch
 # ---------------------------------------------------------------------------
@@ -365,8 +347,7 @@ def _eval_enum_minmax(buf, length, want_max) -> EvalResult:
 def eval_enum_minmax_reference(buf, length, want_max) -> EvalResult:
     """The plain version of ``_eval_enum_minmax``, batched torch on any
     device (each segment through ``eval_flat_reference``)."""
-    with _COUNT_LOCK:
-        eval_enum_minmax_reference.launches += 1
+    EVENTS.count("plain.eval_enum_minmax")
     rows, n = buf.shape
     dev = buf.device
     length = bs.col(length, rows, dev).to(torch.int64)
@@ -393,9 +374,6 @@ def eval_enum_minmax_reference(buf, length, want_max) -> EvalResult:
         start = torch.where(go, end + 1, start)
     err = torch.where(~any_v, ERR_ASSERT, err)
     return EvalResult(err.to(torch.int32), best.to(torch.int32))
-
-
-eval_enum_minmax_reference.launches = 0
 
 
 def _has_only_enum_chars(buf, length) -> torch.Tensor:

@@ -33,7 +33,9 @@ wrapper first groups the rows by pc on the card (``regroup``,
 ``csrc/regroup.cu``), so that a warp's rows start at one instruction;
 otherwise slot s is row s (``launch_order``). Rows never move in the batch.
 
-Each function counts its launches in ``.launches``.
+A kernel launch counts as ``kernel.turbo_step`` or ``kernel.regroup``, and
+a call of a plain version as ``plain.turbo_step`` or ``plain.regroup``, in
+``EVENTS`` (``core/events.py``); a sharded call is its shards' launches.
 """
 
 from __future__ import annotations
@@ -48,16 +50,19 @@ import torch
 
 from ..core.events import EVENTS
 from ..vm import turbo_tables as tt
+from ..vm.config import (DONE, PARKED, PM_DRAIN, PM_NONE, PM_WAIT, RUNNING,
+                         T_DONE, T_FREE, T_NEW, T_READY, T_WAIT)
 from ..vm.state import T_EMPTY, T_INT, T_LIST, T_STR
 from ..vm.syncs import host_sync
 
-RUNNING, DONE, PARKED = 0, 1, 2
+# the fixed control columns of a register row (csrc/turbo_step.cu has the
+# same); vm/turbo.py's _Cols lays out every column after C_BASE.
+# C_CLREPOCH counts in-kernel ``clear``s: the host-side output spill
+# (_out_prefix) is tagged with the epoch it was drained at, so a later
+# device-side clear erases it (decode ignores a stale-epoch prefix)
 C_PC, C_STATUS, C_STEPS, C_OUTLEN = 0, 1, 2, 3
 C_CURTID, C_PARMODE, C_PARJOIN, C_PAREPOCH, C_CLREPOCH, C_BASE = \
     4, 5, 6, 7, 8, 9
-# thread-lane states and block modes (the JAX package's vm/config.py)
-T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = 0, 1, 2, 3, 4
-PM_NONE, PM_WAIT, PM_DRAIN = 0, 1, 3
 MAX_WIDTH = 2048         # csrc/turbo_step.cu MAX_W
 MAX_TILE = 256           # csrc/turbo_step.cu MAX_TILE: threads per block
 WARP = 32                # csrc/turbo_step.cu WARP: the wide lane group
@@ -144,14 +149,10 @@ H100_SHARED = SharedMemory(per_sm=233_472, per_block=232_448, reserved=1024)
 
 def shared_memory(device) -> SharedMemory:
     """CUDA ``device``'s shared memory (``cudaDeviceGetAttribute``)."""
-    from .build import load
-    lib = load()
+    from .build import call
     vals = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
-        rc = lib.turbo_shared_memory(vals)
-    if rc != 0:
-        raise RuntimeError(f"cudaDeviceGetAttribute failed: CUDA error {rc} "
-                           f"({lib.turbo_error_string(rc).decode()})")
+        call("turbo_shared_memory", vals)
     return SharedMemory(*vals)
 
 
@@ -404,6 +405,7 @@ def regroup_reference(regs: torch.Tensor, n_instr: int) -> torch.Tensor:
     (N, REGW) int32 as an int32 permutation, RUNNING rows binned by pc in
     pc order, then every other row (and a RUNNING row at a pc past the
     program), each bin in row order: a stable sort by the bin."""
+    EVENTS.count("plain.regroup")
     key = _regroup_key(regs, n_instr)
     return torch.sort(key, stable=True).indices.to(torch.int32)
 
@@ -432,13 +434,11 @@ def regroup(tables: StepTables, regs: torch.Tensor) -> torch.Tensor:
     """``regroup_reference``'s permutation of the rows of ``regs``: on the
     card by ``csrc/regroup.cu`` on the current stream, with no host sync,
     into a tensor kept with ``tables`` that the next regroup of that shape
-    on that stream overwrites (counted in ``.launches``); on the CPU by the
-    plain version."""
+    on that stream overwrites; on the CPU by the plain version."""
     n_instr = tables.host.n_instr
     if regs.device.type != "cuda":
         return regroup_reference(regs, n_instr)
-    from .build import load
-    lib = load()
+    from .build import launch
     n = regs.shape[0]
     stream = torch.cuda.current_stream(regs.device).cuda_stream
     scr = tables.scratch.get((n, stream))
@@ -450,18 +450,10 @@ def regroup(tables: StepTables, regs: torch.Tensor) -> torch.Tensor:
             return torch.empty(k, dtype=torch.int32, device=regs.device)
         scr = tables.scratch[(n, stream)] = RegroupScratch(
             chunk, ints(n), ints(counts), ints(n))
-    rc = lib.regroup_launch(regs.data_ptr(), n, regs.shape[1], n_instr,
-                            scr.chunk, scr.keys.data_ptr(),
-                            scr.counts.data_ptr(), scr.perm.data_ptr(),
-                            stream)
-    if rc != 0:
-        raise RuntimeError(f"regroup launch failed: CUDA error {rc} "
-                           f"({lib.turbo_error_string(rc).decode()})")
-    regroup.launches += 1
+    launch("regroup", regs.data_ptr(), n, regs.shape[1], n_instr, scr.chunk,
+           scr.keys.data_ptr(), scr.counts.data_ptr(), scr.perm.data_ptr(),
+           stream)
     return scr.perm
-
-
-regroup.launches = 0
 
 
 def warp_starts(regs: torch.Tensor, n_instr: int, tile: int,
@@ -491,14 +483,13 @@ def launch_order(tables: StepTables, regs: torch.Tensor, tile: int,
                  sms: int) -> Optional[torch.Tensor]:
     """The row order of a launch over ``regs`` at ``tile`` instances a
     block on a card of ``sms`` SMs: ``regroup``'s permutation where
-    ``regroups`` says so (counted as ``turbo.regroups``), else None (slot s
+    ``regroups`` says so, else None (slot s
     steps row s). While ``EVENTS`` records, and only then, it also reads
     back ``warp_starts`` of that order (through ``host_sync``) into the
     counters ``turbo.warps`` and ``turbo.warp_pcs``."""
     order = None
     if regroups(regs.shape[0], tile, sms):
         order = regroup(tables, regs)
-        EVENTS.count("turbo.regroups")
     if EVENTS.recorded is not None:
         warps, pcs = host_sync(warp_starts(regs, tables.host.n_instr, tile,
                                            order).tolist)
@@ -533,27 +524,18 @@ def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):
     if sbuf.shape[2] > MAX_WIDTH:
         raise ValueError(f"width {sbuf.shape[2]} > kernel maximum "
                          f"{MAX_WIDTH}")
-    from .build import load
-    lib = load()
+    from .build import launch
     with torch.cuda.device(regs.device):
         plan = launch_plan(tables, batch, tile)
         order = launch_order(tables, regs, plan.tile, sm_count(regs.device))
         count_launch(plan, batch)
-        rc = lib.turbo_step_launch(
-            tables.flat.data_ptr(), tables.lits.data_ptr(), regs.data_ptr(),
-            sbuf.data_ptr(), out.data_ptr(), meta.data_ptr(),
-            None if order is None else order.data_ptr(), regs.shape[0],
-            regs.shape[1], sbuf.shape[2], out.shape[1], int(k_steps),
-            plan.c_fields, len(plan.c_fields),
-            torch.cuda.current_stream(regs.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"turbo_step_kernel launch failed: CUDA error "
-                           f"{rc} ({lib.turbo_error_string(rc).decode()})")
-    turbo_step.launches += 1
+        launch("turbo_step", tables.flat.data_ptr(), tables.lits.data_ptr(),
+               regs.data_ptr(), sbuf.data_ptr(), out.data_ptr(),
+               meta.data_ptr(), None if order is None else order.data_ptr(),
+               regs.shape[0], regs.shape[1], sbuf.shape[2], out.shape[1],
+               int(k_steps), plan.c_fields, len(plan.c_fields),
+               torch.cuda.current_stream(regs.device).cuda_stream)
     return batch
-
-
-turbo_step.launches = 0
 
 
 def kernel_attributes(device, lanes: int = 1) -> dict:
@@ -563,14 +545,10 @@ def kernel_attributes(device, lanes: int = 1) -> dict:
     bytes per thread, static shared bytes, the most threads a block may
     have, and the dynamic shared bytes allowed (the opt-in, after the first
     launch)."""
-    from .build import load
-    lib = load()
+    from .build import call
     vals = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        rc = lib.turbo_step_attributes(lanes, vals)
-    if rc != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {rc} "
-                           f"({lib.turbo_error_string(rc).decode()})")
+        call("turbo_step_attributes", lanes, vals)
     return dict(zip(("registers", "local_bytes", "static_shared_bytes",
                      "max_threads", "max_dynamic_shared_bytes"), vals))
 
@@ -581,37 +559,25 @@ def sharded_turbo_step(tables: dict, batch, k_steps: int, tile: int = 128):
     the plan's ``StepTables`` there. Each shard launches on its device's
     current stream, with no synchronisation between shards: launches on
     different cards run at once, launches on one card queue in order. No
-    collectives: instances never interact. Counts one launch per call that
-    launches the kernel on CUDA shards (each shard's launch is also counted
-    by ``turbo_step``); CPU shards run the plain version."""
-    on_card = False
+    collectives: instances never interact. CPU shards run the plain
+    version."""
     for shard, _ in batch.parts():
         turbo_step(tables[shard.regs.device], shard, k_steps, tile)
-        on_card |= shard.regs.device.type == "cuda"
-    if on_card:
-        sharded_turbo_step.launches += 1
     return batch
-
-
-sharded_turbo_step.launches = 0
 
 
 def sharded_turbo_step_reference(tables: dict, batch, k_steps: int):
     """The plain version of ``sharded_turbo_step``: ``turbo_step_reference``
     on every shard, the same way."""
-    sharded_turbo_step_reference.launches += 1
     for shard, _ in batch.parts():
         turbo_step_reference(tables[shard.regs.device], shard, k_steps)
     return batch
 
 
-sharded_turbo_step_reference.launches = 0
-
-
 def turbo_step_reference(tables: StepTables, batch, k_steps: int):
     """The plain PyTorch version of ``turbo_step_kernel``: the same steps
     on the same tensors, on any device."""
-    turbo_step_reference.launches += 1
+    EVENTS.count("plain.turbo_step")
     regs = batch.regs
     host = tables.host
     for _ in range(k_steps):
@@ -628,9 +594,6 @@ def turbo_step_reference(tables: StepTables, batch, k_steps: int):
                 _lane_yield(lanes, host)
                 lanes.commit()
     return batch
-
-
-turbo_step_reference.launches = 0
 
 
 class _Lanes:

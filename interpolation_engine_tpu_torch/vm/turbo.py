@@ -61,7 +61,7 @@ from __future__ import annotations
 
 import asyncio
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -70,29 +70,20 @@ import torch
 from .._shared import (context, events, executor, io_manager, isa, planner,
                        vm_config)
 from .._shared import lanering as lanering_mod
-from ..ops.turbo_step import (MAX_WIDTH, StepTables, TileShape,
-                              fits_one_instance, shared_memory,
+from ..ops.turbo_step import (C_BASE, C_CLREPOCH, C_CURTID, C_OUTLEN,
+                              C_PAREPOCH, C_PARJOIN, C_PARMODE, C_PC,
+                              C_STATUS, C_STEPS, MAX_WIDTH, StepTables,
+                              TileShape, fits_one_instance, shared_memory,
                               sharded_turbo_step, turbo_step)
 from ..parallel.mesh import ShardedTurboBatch, make_mesh, shard_turbo_batch
 from . import state as vs
 from .state import T_INT, T_LIST, T_STR
 from .turbo_tables import build_tables
 
-NotTurbo = planner.NotTurbo
-DONE, PARKED, RUNNING = vm_config.DONE, vm_config.PARKED, vm_config.RUNNING
-PM_NONE, PM_DRAIN = vm_config.PM_NONE, vm_config.PM_DRAIN
-T_FREE, T_NEW, T_READY, T_WAIT, T_DONE = (
-    vm_config.T_FREE, vm_config.T_NEW, vm_config.T_READY, vm_config.T_WAIT,
-    vm_config.T_DONE)
+from .config import (DONE, PARKED, PM_DRAIN, PM_NONE, RUNNING, T_DONE,
+                     T_FREE, T_NEW, T_READY, T_WAIT)
 
-# fixed control columns; everything after is computed by _Cols
-C_PC, C_STATUS, C_STEPS, C_OUTLEN = 0, 1, 2, 3
-C_CURTID, C_PARMODE, C_PARJOIN, C_PAREPOCH = 4, 5, 6, 7
-# count of in-kernel `clear`s: the host-side output spill (_out_prefix) is
-# tagged with the epoch it was drained at, so a later device-side clear
-# erases it (decode ignores a stale-epoch prefix)
-C_CLREPOCH = 8
-C_BASE = 9
+NotTurbo = planner.NotTurbo
 
 
 @dataclass(frozen=True)
@@ -104,6 +95,13 @@ class TurboConfig:
     k_steps: int = 32   # VM steps per kernel launch
     list_cap: int = 12  # elements per list slot
     elem_width: int = 32  # bytes per list element
+
+    def widened(self, f: int) -> "TurboConfig":
+        """This config with width, out_width and elem_width ``f`` times
+        wider: the promotion sibling's widening."""
+        return replace(self, width=f * self.width,
+                       out_width=f * self.out_width,
+                       elem_width=f * self.elem_width)
 
 
 def base_config(plan) -> TurboConfig:
@@ -118,8 +116,7 @@ def base_config(plan) -> TurboConfig:
     longest = int(lits.lengths().max())
     cfg = TurboConfig()
     while cfg.width < longest:
-        cfg = TurboConfig(width=4 * cfg.width, out_width=4 * cfg.out_width,
-                          elem_width=4 * cfg.elem_width)
+        cfg = cfg.widened(4)
     if cfg.width > TurboConfig.width:
         events.EVENTS.count("turbo.base_width", cfg.width)
     return cfg
@@ -1359,9 +1356,7 @@ class TurboEngine:
         limit = step_max_width(self.device)
         if limit is not None and t.width * f > limit:
             return None
-        wide = TurboConfig(tile=t.tile, width=t.width * f,
-                           out_width=t.out_width * f, k_steps=t.k_steps,
-                           list_cap=t.list_cap, elem_width=t.elem_width * f)
+        wide = t.widened(f)
         cols = _make_cols(self.plan, wide)
         host = _plan_tables(self.plan, cols, wide)
         if step_fits(self.device, cols, wide, host):

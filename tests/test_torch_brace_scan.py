@@ -11,6 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from interpolation_engine_tpu.ops import pallas_scan as jax_scan
+from interpolation_engine_tpu_torch.core.events import EVENTS
 from interpolation_engine_tpu_torch.ops import brace_scan as scan
 
 # tests/test_pallas_scan.py's curated strings
@@ -115,10 +116,9 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors_only():
     move); anything the kernel cannot take raises."""
     bufs, lens = make_rows(CURATED, 64)
     b, ln = torch.from_numpy(bufs), torch.from_numpy(lens)
-    k0, p0 = scan.brace_scan.launches, scan.brace_scan_reference.launches
-    scan.brace_scan(b, ln)
-    assert scan.brace_scan.launches == k0
-    assert scan.brace_scan_reference.launches == p0 + 1
+    with EVENTS.recording() as rec:
+        scan.brace_scan(b, ln)
+    assert rec.counters == {"plain.brace_scan": 1}
     with pytest.raises(ValueError, match="uint8"):
         scan.brace_scan(b.to(torch.int32), ln)
     with pytest.raises(ValueError, match="int32"):

@@ -31,6 +31,7 @@ from interpolation_engine_tpu.core.runtime import async_main
 from interpolation_engine_tpu.io.manager import BufferBackend, IOManager
 from interpolation_engine_tpu.ops import filter_kernel as jfk
 from interpolation_engine_tpu_torch import _shared as port
+from interpolation_engine_tpu_torch.core.events import EVENTS
 from interpolation_engine_tpu_torch.ops import filter_kernel as fk
 
 
@@ -93,10 +94,10 @@ def test_span_overflow_returns_the_exact_oracle():
     oracle (all 20 spans) and counts it; the batched call reports the raw
     count and clips the table as JAX does."""
     raw = "".join(f"<o>s{k}</o>," for k in range(20))
-    before = fk.filter_chat_host.oracle_calls
-    outputs, visual = fk.filter_chat_host(raw, "<o>", "</o>", "", "", True,
-                                          device="cpu")
-    assert fk.filter_chat_host.oracle_calls == before + 1
+    with EVENTS.recording() as rec:
+        outputs, visual = fk.filter_chat_host(raw, "<o>", "</o>", "", "",
+                                              True, device="cpu")
+    assert rec.counters.get("host.chat_filter", 0) == 1
     assert len(outputs) == 20
     assert (outputs, visual) == host_filter(raw, "<o>", "</o>", "", "",
                                             True, chunk=1)
@@ -186,11 +187,11 @@ def test_dispatch_by_the_rows_device():
     """CPU rows run the plain version and count it; a device with no
     kernel raises."""
     bufs, lengths = rows(["<o>a</o>"])
-    k0, r0 = fk.filter_chat_text.launches, fk.filter_chat_reference.launches
-    fk.filter_chat_text(bufs, lengths, start="<o>", stop="</o>",
-                        hide_start="", hide_stop="", enumerate_outputs=False)
-    assert (fk.filter_chat_text.launches,
-            fk.filter_chat_reference.launches) == (k0, r0 + 1)
+    with EVENTS.recording() as rec:
+        fk.filter_chat_text(bufs, lengths, start="<o>", stop="</o>",
+                            hide_start="", hide_stop="",
+                            enumerate_outputs=False)
+    assert rec.counters == {"plain.chat_filter": 1}
     with pytest.raises(ValueError, match="no chat filter"):
         fk.filter_chat_text(bufs.to("meta"), lengths.to("meta"), start="<o>",
                             stop="</o>", hide_start="", hide_stop="",
@@ -239,13 +240,14 @@ def test_service_filters_equal_with_the_flag_on_and_off(
     machines, with the same outputs and visual text."""
     text = ("<think>hidden plan</think>junk <output>first</output> mid "
             "<output>second</output> tail")
-    calls = fk.filter_chat_reference.launches
-    got = run_port_chat(monkeypatch, text, flag, start_str="<output>",
-                        stop_str="</output>", n_outputs=2,
-                        hide_start_str="<think>", hide_stop_str="</think>")
+    with EVENTS.recording() as rec:
+        got = run_port_chat(monkeypatch, text, flag, start_str="<output>",
+                            stop_str="</output>", n_outputs=2,
+                            hide_start_str="<think>",
+                            hide_stop_str="</think>")
     assert got == (["first", "second"], "1. first\n\n2. second",
                    "1. first\n\n2. second")
-    assert fk.filter_chat_reference.launches == calls + flag
+    assert rec.counters.get("plain.chat_filter", 0) == flag
 
 
 @pytest.mark.parametrize("flag", [True, False])
@@ -254,14 +256,14 @@ def test_service_hidden_and_overflowing_chats(flag, monkeypatch,
     """``shown: false`` writes nothing; 18 spans take the exact oracle
     with the flag on, and equal the incremental filters with it off."""
     text = "".join(f"<s>{k}<t>x</t></s>" for k in range(18))
-    oracle = fk.filter_chat_host.oracle_calls
-    outputs, visual, written = run_port_chat(
-        monkeypatch, text, flag, start_str="<s>", stop_str="</s>",
-        n_outputs=3, hide_start_str="<t>", hide_stop_str="</t>")
+    with EVENTS.recording() as rec:
+        outputs, visual, written = run_port_chat(
+            monkeypatch, text, flag, start_str="<s>", stop_str="</s>",
+            n_outputs=3, hide_start_str="<t>", hide_stop_str="</t>")
     assert outputs == [f"{k}<t>x</t>" for k in range(18)]
     assert visual == written == "\n\n".join(f"{k + 1}. {k}"
                                             for k in range(18))
-    assert fk.filter_chat_host.oracle_calls == oracle + flag
+    assert rec.counters.get("host.chat_filter", 0) == flag
     assert run_port_chat(monkeypatch, text, flag, start_str="<s>",
                          stop_str="</s>", shown=False)[1:] == ("", "")
 
@@ -301,22 +303,24 @@ def test_chat_program_on_the_engines_equals_the_host(
         calls = len(server.requests)
         if flag:
             monkeypatch.setenv("IE_TPU_DEVICE_FILTERS", "1")
-        launches = fk.filter_chat_reference.launches
-        if engine == "turbo":
-            eng = TurboEngine(compile_port(src), TurboConfig(**tc.CHAT_SIZES),
-                              io_factory=port_io, device="cpu")
-            results = eng.results(eng.run(eng.make_batch(8)))
-            assert eng.ring_stats["escapes"] == 0
-            assert eng.ring_stats["parks_by_kind"][port.vm_config.PARK_CHAT] \
-                == len(server.requests) - calls
-        else:
-            runner = DeviceRunner(compile_port(src), io_factory=port_io,
-                                  device="cpu")
-            results = runner.results(runner.run(runner.make_instances(8)))
+        with EVENTS.recording() as rec:
+            if engine == "turbo":
+                eng = TurboEngine(compile_port(src),
+                                  TurboConfig(**tc.CHAT_SIZES),
+                                  io_factory=port_io, device="cpu")
+                results = eng.results(eng.run(eng.make_batch(8)))
+                assert eng.ring_stats["escapes"] == 0
+                assert eng.ring_stats["parks_by_kind"][
+                    port.vm_config.PARK_CHAT] == len(server.requests) - calls
+            else:
+                runner = DeviceRunner(compile_port(src), io_factory=port_io,
+                                      device="cpu")
+                results = runner.results(
+                    runner.run(runner.make_instances(8)))
         chats = len(server.requests) - calls
     capsys.readouterr()
     assert chats == 8 * (3 if name == "turns" else 4)
-    assert fk.filter_chat_reference.launches - launches == chats * flag
+    assert rec.counters.get("plain.chat_filter", 0) == chats * flag
     for r in results:
         assert (r.output, r.inserts) == (host["output"], host["inserts"])
 

@@ -6,6 +6,7 @@ results (``tests/test_multichip.py:48`` and ``:77``). The counterpart of
 ``__graft_entry__.dryrun_multichip``: one sharded general step at the
 bench's VMConfig, bit for bit one device's."""
 
+import sys
 import threading
 
 import numpy as np
@@ -20,11 +21,13 @@ from interpolation_engine_tpu.io.manager import IOManager, ScriptedBackend
 from interpolation_engine_tpu.vm import driver as jd
 from interpolation_engine_tpu.vm.config import DONE
 from interpolation_engine_tpu_torch import _shared as port
+from interpolation_engine_tpu_torch.core.events import EVENTS
 from interpolation_engine_tpu_torch.parallel.mesh import (
     ShardedVMBatch, batched_run_sharded, make_mesh, replicate, shard_batch,
     unshard)
 from interpolation_engine_tpu_torch.vm import driver as pd
 from interpolation_engine_tpu_torch.vm import state as vs
+from interpolation_engine_tpu_torch.vm.syncs import host_sync
 from interpolation_engine_tpu_torch.ops import brace_scan as scan_mod
 from interpolation_engine_tpu_torch.vm.isa import OP_PAR_BEGIN
 from interpolation_engine_tpu_torch.vm.step import (GeneralStep,
@@ -136,25 +139,44 @@ def test_batched_run_sharded_keeps_its_input_and_its_mesh():
     assert make_mesh(devices=MESH4) == (torch.device("cpu"),) * 4
 
 
+def on_8_threads(call) -> dict:
+    """``call()`` 500 times on each of 8 threads inside one recording,
+    the threads switched every microsecond so that an unlocked count would
+    lose updates; returns its counters."""
+    def work():
+        for _ in range(500):
+            call()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with EVENTS.recording() as rec:
+            threads = [threading.Thread(target=work) for _ in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    return rec.counters
+
+
 def test_scan_launches_count_exactly_from_worker_threads():
     """The shards of a mesh call the brace scan from a worker thread per
     device: every call is counted (on the CPU, the plain version's)."""
     bufs = torch.zeros((2, 8), dtype=torch.uint8)
     lengths = torch.zeros((2,), dtype=torch.int32)
-    kernel = scan_mod.brace_scan.launches
-    plain = scan_mod.brace_scan_reference.launches
+    counters = on_8_threads(lambda: scan_mod.brace_scan(bufs, lengths))
+    assert counters == {"plain.brace_scan": 8 * 500}
 
-    def work():
-        for _ in range(500):
-            scan_mod.brace_scan(bufs, lengths)
 
-    threads = [threading.Thread(target=work) for _ in range(8)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    assert scan_mod.brace_scan.launches == kernel
-    assert scan_mod.brace_scan_reference.launches - plain == 8 * 500
+def test_host_syncs_count_exactly_from_worker_threads():
+    """The shards' handlers wait on their devices through ``host_sync``
+    from a worker thread each: every wait is counted, and timed."""
+    lengths = torch.zeros((2,), dtype=torch.int32)
+    counters = on_8_threads(lambda: host_sync(lengths.tolist))
+    assert counters == {"general.host_syncs": 8 * 500}
 
 
 # ---- the sharded ring ----------------------------------------------------------------

@@ -13,6 +13,7 @@ import bench
 import torch_chat as tc
 import torch_programs as tp
 
+from interpolation_engine_tpu_torch.core.events import EVENTS
 from interpolation_engine_tpu_torch.ops.turbo_step import (
     turbo_step, turbo_step_reference)
 from interpolation_engine_tpu_torch.vm.turbo import TurboConfig, TurboEngine
@@ -91,10 +92,8 @@ def test_kernel_equals_plain_on_random_programs(idx, cuda):
 
 def test_sharded_step_on_two_shards_equals_the_unsharded_kernel(cuda):
     """Two shards of cuda:0 (n=301 splits unevenly): after every launch the
-    sharded step equals the unsharded kernel bit for bit, and the sharded
-    wrapper counts one launch per step, its shards one each."""
-    from interpolation_engine_tpu_torch.ops.turbo_step import (
-        sharded_turbo_step)
+    sharded step equals the unsharded kernel bit for bit, and each sharded
+    step is one kernel launch a shard."""
     from interpolation_engine_tpu_torch.parallel.mesh import (
         shard_turbo_batch, unshard)
     src, tcfg = bench.adventure_program(), TurboConfig(
@@ -107,15 +106,16 @@ def test_sharded_step_on_two_shards_equals_the_unsharded_kernel(cuda):
         0, 40, (301,), generator=gen, dtype=torch.int32).to(cuda)
     sharded = shard_turbo_batch(batch, two.mesh)
     step_one, step_two = one.step_fn(301), two.step_fn(301)
-    before = sharded_turbo_step.launches, turbo_step.launches
     for _ in range(6):
         step_one(batch)
-        step_two(sharded)
+        # a sharded call is its shards' launches, one a shard
+        with EVENTS.recording() as rec:
+            step_two(sharded)
         torch.cuda.synchronize()
+        assert rec.counters["kernel.turbo_step"] == 2
+        assert "plain.turbo_step" not in rec.counters
         for a, b in zip(unshard(sharded), batch):
             assert torch.equal(a, b)
-    assert sharded_turbo_step.launches == before[0] + 6
-    assert turbo_step.launches == before[1] + 6 * 3
 
 
 # ---- the tile design: ragged tiles, wide rows, scratch, skipped tiles -------
@@ -266,9 +266,9 @@ def test_sibling_past_a_blocks_shared_memory_escapes_on_the_card(
         io_factory=lambda i: iom.IOManager(iom.ScriptedBackend(
             list(answers[i % 2]))), device=cuda)
     assert eng._wide_tcfg() is None
-    before = turbo_step.launches
-    res = eng.results(eng.run(eng.make_batch(6)))
-    assert turbo_step.launches > before
+    with EVENTS.recording() as rec:
+        res = eng.results(eng.run(eng.make_batch(6)))
+    assert rec.counters.get("kernel.turbo_step", 0) > 0
     assert sorted(eng._escape_results) == [0, 2, 4]
     assert [r.instance_ids for r in eng.escape_runners] == [[0, 2, 4]]
     assert eng.escape_runners[0].device == cuda
@@ -318,11 +318,11 @@ def test_fast_ring_and_promotion_on_the_card_equal_the_cpu(cuda):
             tile=8, width=192, out_width=192, k_steps=24),
             io_factory=lambda i: iom.IOManager(
                 iom.ScriptedBackend(list(answers[i % 2]))), device=dev)
-        before = turbo_step.launches, turbo_step_reference.launches
-        res = [e.results(e.run(e.make_batch(n))) for e, n in
-               ((race, 300), (promo, 6))]
-        launched = (turbo_step.launches - before[0],
-                    turbo_step_reference.launches - before[1])
+        with EVENTS.recording() as rec:
+            res = [e.results(e.run(e.make_batch(n))) for e, n in
+                   ((race, 300), (promo, 6))]
+        launched = (rec.counters.get("kernel.turbo_step", 0),
+                    rec.counters.get("plain.turbo_step", 0))
         assert race.ring_stats["fast_parks"] == 900
         assert sorted(promo._escape_results) == [1, 3, 5]
         runs[str(dev)] = [[(r.output, r.inserts, r.status, r.steps)
@@ -450,7 +450,6 @@ def test_a_launch_counts_a_warp_a_row_where_its_plan_says(cuda):
     """``turbo.warp_row_launches``: three launches of the prompt chain's
     wide batch (T = 3) count three; three of adventure at width 128
     (T > 8) count none."""
-    from interpolation_engine_tpu_torch.core.events import EVENTS
     from interpolation_engine_tpu_torch.ops.turbo_step import launch_plan
     narrow = TurboEngine(compile_src(bench.adventure_program()), ADVENTURE,
                          device=cuda)
@@ -483,11 +482,12 @@ def test_launch_plan_is_made_once_for_the_cards_shared_memory(cuda):
 
 def test_kernel_counts_its_launches(cuda):
     eng = TurboEngine(compile_src(tp.COPY_TYPES), TurboConfig(), device=cuda)
-    before = turbo_step.launches, turbo_step_reference.launches
-    eng.step_fn(5)(eng.make_batch(5))
+    step, batch = eng.step_fn(5), eng.make_batch(5)
+    with EVENTS.recording() as rec:
+        step(batch)
     torch.cuda.synchronize()
-    assert turbo_step.launches == before[0] + 1
-    assert turbo_step_reference.launches == before[1]
+    assert rec.counters["kernel.turbo_step"] == 1
+    assert "plain.turbo_step" not in rec.counters
 
 
 # ---------------------------------------------------------------------------
@@ -522,13 +522,12 @@ def test_brace_scan_kernel_equals_plain(n, ms, skip, cuda):
     assert bufs.is_contiguous()
     if skip and ms % 16:
         assert bufs.data_ptr() % 16 != 0
-    before = brace_scan.launches, brace_scan_reference.launches
-    got = brace_scan(bufs, lens)
-    want = brace_scan_reference(bufs, lens)
+    with EVENTS.recording() as rec:
+        got = brace_scan(bufs, lens)
+        want = brace_scan_reference(bufs, lens)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert brace_scan.launches == before[0] + 1
-    assert brace_scan_reference.launches == before[1] + 1
+    assert rec.counters == {"kernel.brace_scan": 1, "plain.brace_scan": 1}
 
 
 GENERAL = tp.general_programs(bench)
@@ -592,11 +591,11 @@ def filter_held_to_plain(bufs, lengths, delims, enum) -> dict:
     start, stop, hs, he = delims
     kw = dict(start=start, stop=stop, hide_start=hs, hide_stop=he,
               enumerate_outputs=enum)
-    before = filter_chat_text.launches
-    got = filter_chat_text(bufs, lengths, **kw)
+    with EVENTS.recording() as rec:
+        got = filter_chat_text(bufs, lengths, **kw)
     want = filter_chat_reference(bufs, lengths, **kw)
     torch.cuda.synchronize()
-    assert filter_chat_text.launches == before + 1
+    assert rec.counters == {"kernel.chat_filter": 1}
     for key in want:
         assert torch.equal(got[key], want[key]), key
     return got
@@ -666,11 +665,11 @@ def test_chat_filter_host_on_the_card_equals_the_cpu(cuda):
     streams = list(tc.FILTER_CASES) + [
         ("".join(f"<o>s{k}</o>," for k in range(20)), "<o>", "</o>", "",
          "", True)] + tc.fuzz_streams(991, 40)
-    before = filter_chat_host.oracle_calls
-    for stream in streams:
-        assert filter_chat_host(*stream) == filter_chat_host(*stream,
-                                                             device="cpu")
-    assert filter_chat_host.oracle_calls == before + 2
+    with EVENTS.recording() as rec:
+        for stream in streams:
+            assert filter_chat_host(*stream) == filter_chat_host(
+                *stream, device="cpu")
+    assert rec.counters["host.chat_filter"] == 2
 
 
 # ---------------------------------------------------------------------------
@@ -701,12 +700,12 @@ def test_math_eval_kernel_equals_plain(n, ms, mode, cuda):
     rows = torch.arange(n, device=cuda)
     want_max = {"flat": None, "min": rows < 0, "max": rows >= 0,
                 "mixed": rows % 3 == 0}[mode]
-    before = mak.math_eval_kernel.launches
-    got = mak.math_eval_kernel(bufs, lens, want_max)
+    with EVENTS.recording() as rec:
+        got = mak.math_eval_kernel(bufs, lens, want_max)
     want = (mak.eval_flat_reference(bufs, lens) if want_max is None else
             mak.eval_enum_minmax_reference(bufs, lens, want_max))
     torch.cuda.synchronize()
-    assert mak.math_eval_kernel.launches == before + 1
+    assert rec.counters == {"kernel.math_eval": 1}
     assert torch.equal(got.err, want.err)
     assert torch.equal(got.value, want.value)
 
@@ -714,14 +713,12 @@ def test_math_eval_kernel_equals_plain(n, ms, mode, cuda):
 def test_math_evaluator_dispatches_to_the_kernel_on_the_card(cuda):
     from interpolation_engine_tpu_torch.ops import math_kernel as mak
     bufs, lens = expression_rows(64, 96, 1, lists=True)
-    counts = (mak.math_eval_kernel, mak.eval_flat_reference,
-              mak.eval_enum_minmax_reference)
-    before = [fn.launches for fn in counts]
-    mak.eval_flat(bufs, lens)
-    mak._eval_enum_minmax(bufs, lens, torch.ones(64, dtype=torch.bool,
-                                                 device=cuda))
+    with EVENTS.recording() as rec:
+        mak.eval_flat(bufs, lens)
+        mak._eval_enum_minmax(bufs, lens, torch.ones(64, dtype=torch.bool,
+                                                     device=cuda))
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(counts, before)] == [2, 0, 0]
+    assert rec.counters == {"kernel.math_eval": 2}
 
 
 def wildcard_rows(n, ms, seed, shared=False, stars=None):
@@ -743,11 +740,11 @@ def test_wildcard_match_kernel_equals_plain(n, ms, shared, max_stars, cuda):
     from interpolation_engine_tpu_torch.ops import match_kernel as mk
     args = wildcard_rows(n, ms, n + ms + max_stars, shared,
                          2 if shared else None)
-    before = mk.wildcard_match_kernel.launches
-    got = mk.wildcard_match_kernel(*args, max_stars)
+    with EVENTS.recording() as rec:
+        got = mk.wildcard_match_kernel(*args, max_stars)
     want = mk.wildcard_match_reference(*args, max_stars)
     torch.cuda.synchronize()
-    assert mk.wildcard_match_kernel.launches == before + 1
+    assert rec.counters == {"kernel.wildcard_match": 1}
     for name, g, w in zip(mk.MatchResult._fields, got, want):
         assert torch.equal(g, w), name
 
@@ -767,12 +764,10 @@ def test_wildcard_lengths_past_the_row_equal_plain(cuda):
 def test_wildcard_match_dispatches_to_the_kernel_on_the_card(cuda):
     from interpolation_engine_tpu_torch.ops import match_kernel as mk
     args = wildcard_rows(64, 96, 2)
-    before = (mk.wildcard_match_kernel.launches,
-              mk.wildcard_match_reference.launches)
-    mk.wildcard_match(*args, 2)
+    with EVENTS.recording() as rec:
+        mk.wildcard_match(*args, 2)
     torch.cuda.synchronize()
-    assert (mk.wildcard_match_kernel.launches - before[0],
-            mk.wildcard_match_reference.launches - before[1]) == (1, 0)
+    assert rec.counters == {"kernel.wildcard_match": 1}
 
 
 def test_wildcard_match_kernel_refuses_what_it_cannot_take(cuda):

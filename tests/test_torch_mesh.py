@@ -17,6 +17,7 @@ from interpolation_engine_tpu.io.manager import IOManager, ScriptedBackend
 from interpolation_engine_tpu.vm import turbo as jax_turbo
 from interpolation_engine_tpu.vm.config import DONE
 from interpolation_engine_tpu_torch import _shared as port
+from interpolation_engine_tpu_torch.core.events import EVENTS
 from interpolation_engine_tpu_torch.ops import turbo_step as ts
 from interpolation_engine_tpu_torch.parallel.mesh import (
     ShardedTurboBatch, make_mesh, shard_turbo_batch, unshard)
@@ -93,14 +94,13 @@ def test_sharded_step_equals_the_unsharded_step(n):
     spread(one, ref, "turn", 600)
     sharded = shard_turbo_batch(ref, four.mesh)
     step1, step4 = one.step_fn(n), four.step_fn(n)
-    before = ts.sharded_turbo_step_reference.launches
     for _ in range(3):
         step1(ref)
-        assert step4(sharded) is sharded
+        # CPU shards run the plain version, once a shard, and no kernel
+        with EVENTS.recording() as rec:
+            assert step4(sharded) is sharded
+        assert rec.counters == {"plain.turbo_step": 4}
         same_batch(unshard(sharded), ref)
-    # CPU shards run the plain version; the sharded wrapper counts only
-    # launches of the kernel
-    assert ts.sharded_turbo_step_reference.launches == before
     assert int((ref.regs[:, pt.C_STATUS] == DONE).sum()) < n
 
 

@@ -258,7 +258,7 @@ def hold_in_regroup_order(monkeypatch, eng, batch, launches: int):
             ts.turbo_step_reference(eng.tables, batch, k)
             for name, a, b in zip(batch._fields, kern, batch):
                 assert torch.equal(a, b), (launch, name)
-    assert rec.counters["turbo.regroups"] == launches
+    assert rec.counters["kernel.regroup"] == launches
 
 
 @pytest.mark.cuda
@@ -300,7 +300,7 @@ def test_a_small_batch_is_not_regrouped(cuda):
     with EVENTS.recording() as rec:
         ts.turbo_step(eng.tables, kern, 32, ADVENTURE.tile)
     ts.turbo_step_reference(eng.tables, batch, 32)
-    assert "turbo.regroups" not in rec.counters
+    assert "kernel.regroup" not in rec.counters
     assert rec.counters["turbo.warps"] > 0
     for a, b in zip(kern, batch):
         assert torch.equal(a, b)

@@ -177,7 +177,8 @@ def sync_calls(monkeypatch):
 
 
 def test_the_launch_order_counts_only_as_it_should(turbo, sync_calls):
-    """``turbo.regroups`` once a regrouped launch; ``turbo.warps`` and
+    """The regroup once a regrouped launch (on the CPU its plain version,
+    ``plain.regroup``); ``turbo.warps`` and
     ``turbo.warp_pcs`` (read back through ``host_sync``) on every launch
     while recording; with the recorder off, no read back at all. Twelve
     rows at 4 a block are 3 blocks: over one SM's wave of
@@ -195,7 +196,7 @@ def test_the_launch_order_counts_only_as_it_should(turbo, sync_calls):
         assert rec.counters == dict(
             {"turbo.warps": want[0], "turbo.warp_pcs": want[1],
              syncs.COUNTER: 1},
-            **({"turbo.regroups": 1} if regrouped else {}))
+            **({"plain.regroup": 1} if regrouped else {}))
         assert [s[0] for s in rec.spans] == [syncs.SPAN]
     assert len(sync_calls) == 2
     # rows at 10 pcs, 3 warps: row order starts them at more pcs a warp
@@ -527,6 +528,6 @@ def test_turbo_step_counts_each_launch_through_count_launch():
     import inspect
     src = inspect.getsource(ts.turbo_step)
     assert src.count("count_launch(plan, batch)") == 1
-    assert src.index("count_launch(") < src.index("turbo_step_launch(")
+    assert src.index("count_launch(") < src.index('launch("turbo_step"')
     assert "EVENTS.count" not in src
 

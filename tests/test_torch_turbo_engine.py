@@ -11,6 +11,7 @@ from torch_helpers import (PORT_TCFG, port_engine, run_host, run_jax,
 
 from interpolation_engine_tpu.vm.config import DONE, PARK_USER_INPUT
 from interpolation_engine_tpu_torch import cli
+from interpolation_engine_tpu_torch.core.events import EVENTS
 from interpolation_engine_tpu_torch.ops import turbo_step as ts
 from interpolation_engine_tpu_torch.vm import turbo as port_turbo
 from interpolation_engine_tpu_torch.vm.driver import run_program_on_device
@@ -138,11 +139,10 @@ def test_step_checks_rows_dtype_and_layout():
 
 def test_cpu_step_runs_the_plain_version_only():
     eng = port_engine(tp.COPY_TYPES)
-    kernel0 = ts.turbo_step.launches
-    plain0 = ts.turbo_step_reference.launches
-    eng.step_fn(2)(eng.make_batch(2))
-    assert ts.turbo_step.launches == kernel0
-    assert ts.turbo_step_reference.launches == plain0 + 1
+    step, batch = eng.step_fn(2), eng.make_batch(2)
+    with EVENTS.recording() as rec:
+        step(batch)
+    assert rec.counters == {"plain.turbo_step": 1}
 
 
 def test_engine_takes_an_explicit_device():

@@ -15,8 +15,10 @@ import torch_programs as tp
 from torch_helpers import (JAX_TCFG, PORT_TCFG, jax_engine, plans,
                            port_engine, run_host, summary)
 
+from interpolation_engine_tpu.vm import config as jax_config
 from interpolation_engine_tpu.vm import turbo as jax_turbo
 from interpolation_engine_tpu.vm.config import DONE
+from interpolation_engine_tpu_torch.ops import turbo_step as port_step
 from interpolation_engine_tpu_torch.vm import turbo as port_turbo
 
 BENCH_LIKE = bench.BENCH_PROGRAM.replace("'spin-512'", "'spin-12'")
@@ -43,6 +45,25 @@ def _layout(cols):
                   for s in cols.list_ord},
         lanes=[(cols.tpc(l), cols.tstate(l), cols.tparg(l))
                for l in range(cols.nt)])
+
+
+CONTROL = ("C_PC", "C_STATUS", "C_STEPS", "C_OUTLEN", "C_CURTID",
+           "C_PARMODE", "C_PARJOIN", "C_PAREPOCH", "C_CLREPOCH", "C_BASE",
+           "RUNNING", "DONE", "PARKED", "T_FREE", "T_NEW", "T_READY",
+           "T_WAIT", "T_DONE", "PM_NONE", "PM_WAIT", "PM_DRAIN")
+
+
+@pytest.mark.parametrize("name", CONTROL)
+def test_control_columns_and_codes_equal_jax(name):
+    """The control columns (kept in ``ops/turbo_step.py``) and the status,
+    lane and block codes (kept in ``vm/config.py``), as the step wrapper
+    and the engine (those it reads) take them, are the JAX package's."""
+    want = getattr(jax_turbo, name, None)
+    if want is None:
+        want = getattr(jax_config, name)
+    assert isinstance(want, int)
+    assert getattr(port_step, name) == want
+    assert getattr(port_turbo, name, want) == want
 
 
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
