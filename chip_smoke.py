@@ -3,7 +3,8 @@
 card and check it.
 
     python3 chip_smoke.py [--seed N]   # phases 1-22 and the result lines
-    python3 chip_smoke.py --turn TREE  # phase 13, the chat filter's and
+    python3 chip_smoke.py --turn TREE  # phases 5, 11 and 22's launches,
+                                       # phase 13, the chat filter's and
                                        # M and W's times with TREE's
                                        # package
 
@@ -40,7 +41,8 @@ and prints no result):
    of the rows by pc alone (on this lockstep batch, its order the
    identity) against those launches, the staging alone (every instance at
    a pc past the program), and a batch of DONE instances (the skip path)
-   beside a copy of the batch; then ``run_async`` to the end at 40 turns
+   beside a copy of the batch and the bound of its bytes, with the step
+   kernel's attributes; then ``run_async`` to the end at 40 turns
    through the kernel,
    every instance DONE with the host engine's output and inserts, with the
    steps' share of the wall time, each launch's regroup equal to its plain
@@ -197,8 +199,9 @@ and prints no result):
    traffic): 131,072 rows resumed from the traffic's states drawn from
    ``--seed``, 2048-byte slots, T = 3, each row stepped by a warp; the
    first two launches of 32 steps held bit for bit against the plain
-   version, then the launch timed queued at K = 1 and 32 and the staging
-   alone, beside its bound.
+   version, then the launch timed queued at K = 1 and 32 beside its bound,
+   and the staging alone beside a copy of the batch and the bound of its
+   bytes, with the step kernel's attributes.
 
 Every phase that launches the step kernel prints its tile (``launch_plan``:
 T instances a block, the shared bytes). A kernel's time is taken with the
@@ -722,20 +725,27 @@ def check_all_done(name: str, eng, final, host: dict) -> None:
         raise AssertionError(f"{name}: decoded {r0} != host {host}")
 
 
-def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
-    """The main path: the adventure program at the bench's widths."""
+def adventure_tcfg():
+    """bench.py's adventure config without the TPU-only tile and leaf."""
+    from interpolation_engine_tpu_torch.vm.turbo import TurboConfig
+    return TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
+                       elem_width=32)
+
+
+def adventure_launches(card: str, n: int = 131_072) -> dict:
+    """Phase 5's launches on the adventure program at the bench's widths:
+    the first two held against the plain version and both timed, then the
+    launch by K, the regroup alone, the staging alone beside a copy of the
+    batch, and the skip path. Returns the kernel's and plain version's ms
+    a launch, its bound and deviation, and the staging's and copy's ms."""
     from interpolation_engine_tpu_torch import bench
-    import torch
-    from interpolation_engine_tpu_torch._shared import io_manager
     from interpolation_engine_tpu_torch.ops.turbo_step import (
         launch_plan, regroup, regroups, sm_count, turbo_step,
         turbo_step_reference)
     from interpolation_engine_tpu_torch.vm.turbo import (
-        C_PC, C_STATUS, C_STEPS, DONE, TurboConfig, TurboEngine)
+        C_PC, C_STATUS, C_STEPS, DONE, TurboEngine)
 
-    # bench.py's adventure config without the TPU-only tile and leaf
-    tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
-                       elem_width=32)
+    tcfg = adventure_tcfg()
     K = tcfg.k_steps
     eng = TurboEngine(compile_src(bench.adventure_program()), tcfg,
                       device="cuda")
@@ -782,15 +792,34 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
     staged, done = clone(b0), clone(b0)
     staged.regs[:, C_PC] = eng.tables.host.n_instr
     done.regs[:, C_STATUS] = DONE
-    t_stage = timed(lambda b: turbo_step(eng.tables, b, K), staged, L, True)
-    t_done = timed(lambda b: turbo_step(eng.tables, b, K), done, L, True)
-    t_copy = timed(clone, done, L, True)
+    S = 10
+    t_stage = timed(lambda b: turbo_step(eng.tables, b, K), staged, S, True)
+    t_done = timed(lambda b: turbo_step(eng.tables, b, K), done, S, True)
+    t_copy = timed(clone, done, S, True)
+    stage_bound = step_bound(eng.tables, b0, 0)["bound_ms"]
     log(f"phase 5 adventure, the staging alone [{card}]: "
-        f"{t_stage / L * 1e3:.3f} ms/launch; a batch of DONE instances "
-        f"{t_done / L * 1e3:.3f} ms/launch; a copy of the batch (clone of "
-        f"its tensors, the staging's bytes) {t_copy / L * 1e3:.3f} ms")
-    del b0, staged, done
+        f"{t_stage / S * 1e3:.4f} ms/launch; a batch of DONE instances "
+        f"{t_done / S * 1e3:.4f} ms/launch; a copy of the batch (clone of "
+        f"its tensors, the staging's bytes) {t_copy / S * 1e3:.4f} ms; "
+        f"bound {stage_bound:.4f} ms (the batch read and written once, the "
+        f"tables read once)")
+    log(attributes_line())
+    return {"ms": t_kern / L * 1e3, "plain_ms": t_ref / L * 1e3,
+            "max_abs_err": worst, "stage_ms": t_stage / S * 1e3,
+            "copy_ms": t_copy / S * 1e3, **launch_bound}
 
+
+def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
+    """The main path: the adventure program at the bench's widths."""
+    from interpolation_engine_tpu_torch import bench
+    import torch
+    from interpolation_engine_tpu_torch._shared import io_manager
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        launch_plan, regroups, sm_count)
+    from interpolation_engine_tpu_torch.vm.turbo import C_STEPS, TurboEngine
+
+    launched = adventure_launches(card, n)
+    tcfg = adventure_tcfg()
     # the main path: run_async to the end at 40 turns, counted
     src = bench.adventure_program(t_max=40)
     host = run_host(src, io_manager.IOManager(io_manager.BufferBackend()),
@@ -823,9 +852,7 @@ def phase5(card: str, tmp: str, n: int = 131_072) -> dict:
         f"the steps {kernel_s * 1e3:.3f} ms of it ({kernel_s / elapsed:.4f});"
         f" {groups.compared} regroups, each equal to its plain version "
         f"({groups.moved} not the identity)")
-    return {"counts": got, "ms": t_kern / L * 1e3,
-            "plain_ms": t_ref / L * 1e3, "max_abs_err": worst,
-            "regroup_max_abs_err": groups.worst, **launch_bound}
+    return {"counts": got, "regroup_max_abs_err": groups.worst, **launched}
 
 
 def phase6(card: str, tmp: str, n: int = 131_072,
@@ -1354,28 +1381,33 @@ def sync_all() -> None:
         torch.cuda.synchronize(d)
 
 
-def phase11(card: str, tmp: str, n: int = 131_072,
-            n_ring: int = 4096) -> dict:
-    """The turbo engine over a mesh: the sharded step held against the
-    unsharded step and its plain version, then the sharded main path and
-    race-io through the sharded ring."""
-    from interpolation_engine_tpu_torch import bench
+def phase11_mesh(card: str):
+    """Phase 11's mesh: every card when there are two or more, else four
+    shards on ``cuda:0``."""
     import torch
-    from interpolation_engine_tpu_torch._shared import io_manager
-    from interpolation_engine_tpu_torch.ops.turbo_step import (
-        sharded_turbo_step_reference)
-    from interpolation_engine_tpu_torch.parallel.mesh import (
-        make_mesh, shard_turbo_batch, unshard)
-    from interpolation_engine_tpu_torch.vm.turbo import (
-        C_STEPS, DONE, TurboConfig, TurboEngine)
-
+    from interpolation_engine_tpu_torch.parallel.mesh import make_mesh
     if torch.cuda.device_count() >= 2:
         mesh, how = make_mesh(), "one shard on each card"
     else:
         mesh, how = make_mesh(devices=["cuda:0"] * 4), "four shards on cuda:0"
     log(f"phase 11 mesh [{card}]: {len(mesh)} shards, {how}")
-    tcfg = TurboConfig(width=128, out_width=128, k_steps=64, list_cap=12,
-                       elem_width=32)
+    return mesh
+
+
+def mesh_launches(card: str, mesh, n: int = 131_072) -> dict:
+    """Phase 11's sharded step on the adventure program: held against the
+    unsharded step and its plain version on the same shards over two
+    launches, then timed in turns with the unsharded step. Returns the
+    sharded step's and plain version's ms a step, its bound and
+    deviation."""
+    from interpolation_engine_tpu_torch import bench
+    from interpolation_engine_tpu_torch.ops.turbo_step import (
+        sharded_turbo_step_reference)
+    from interpolation_engine_tpu_torch.parallel.mesh import (
+        shard_turbo_batch, unshard)
+    from interpolation_engine_tpu_torch.vm.turbo import C_STEPS, TurboEngine
+
+    tcfg = adventure_tcfg()
     K = tcfg.k_steps
     src = bench.adventure_program()
     one = TurboEngine(compile_src(src), tcfg, device=mesh[0])
@@ -1427,6 +1459,24 @@ def phase11(card: str, tmp: str, n: int = 131_072,
         f"ms/step in turns: unsharded {ms(t_one[:1])}, sharded "
         f"{ms(t_many_all)}, unsharded {ms(t_one[1:])}; plain version on "
         f"the shards {t_plain / L * 1e3:.3f}; {tile}")
+    return {"max_abs_err": worst, "ms": t_many / L * 1e3,
+            "plain_ms": t_plain / L * 1e3, **launch_bound}
+
+
+def phase11(card: str, tmp: str, n: int = 131_072,
+            n_ring: int = 4096) -> dict:
+    """The turbo engine over a mesh: the sharded step held against the
+    unsharded step and its plain version, then the sharded main path and
+    race-io through the sharded ring."""
+    from interpolation_engine_tpu_torch import bench
+    from interpolation_engine_tpu_torch._shared import io_manager
+    from interpolation_engine_tpu_torch.parallel.mesh import unshard
+    from interpolation_engine_tpu_torch.vm.turbo import (
+        C_STEPS, DONE, TurboConfig, TurboEngine)
+
+    mesh = phase11_mesh(card)
+    stepped = mesh_launches(card, mesh, n)
+    tcfg = adventure_tcfg()
 
     # the sharded main path: run_async to the end at 40 turns, counted
     src40 = bench.adventure_program(t_max=40)
@@ -1499,9 +1549,7 @@ def phase11(card: str, tmp: str, n: int = 131_072,
                              "the fast park path")
     log(f"phase 11 race-io over the mesh: the exact run equals the fast run "
         f"instance for instance, {runs[True][1]} steps in both")
-    return {"launches": launches, "max_abs_err": worst,
-            "ms": t_many / L * 1e3, "plain_ms": t_plain / L * 1e3,
-            **launch_bound}
+    return {"launches": launches, **stepped}
 
 
 def phase12(card: str, tmp: str, single: dict, n: int = 16_384) -> None:
@@ -2477,11 +2525,12 @@ def filter_parts(bufs, lengths, calls: int = 10) -> dict:
 def turn(tree: str) -> int:
     """``--turn TREE``: with the package of the checkout TREE (this one,
     or a parent's unpacked beside it), phase 13 (its checks, its ring wall
-    time and the sibling's launch), then phase 19's batch and
-    ``filter_times`` and ``filter_parts`` on it, then M and W's times on
-    phase 21's rows at 131,072 and 4,096 (``mw_turn``), as one JSON line.
-    Run on two trees in turns in one call, it compares them on one
-    card."""
+    time and the sibling's launch), phase 5's launches (the staging alone
+    and the copy among them), phase 11's sharded step, phase 22, then phase
+    19's batch and ``filter_times`` and ``filter_parts`` on it, then M and
+    W's times on phase 21's rows at 131,072 and 4,096 (``mw_turn``), as one
+    JSON line. Run on two trees in turns in one call, it compares them on
+    one card."""
     tree = os.path.abspath(tree)
     sys.path[:0] = [tree, os.path.join(tree, "tests")]
     from interpolation_engine_tpu_torch.ops import build
@@ -2491,12 +2540,16 @@ def turn(tree: str) -> int:
     card = card_line()
     with tempfile.TemporaryDirectory() as tmp:
         promotion = phase13(card, tmp)
+    launched = adventure_launches(card)
+    sharded = mesh_launches(card, phase11_mesh(card))
+    chain = phase22(card)
     _, bufs, lengths, _ = filter_batch(16_384, 8192)
     times = filter_times(bufs, lengths)
     times["parts"] = filter_parts(bufs, lengths)
     del bufs, lengths
     print(json.dumps({"tree": tree, "card": card, "phase13": promotion,
-                      **times, "mw": mw_turn()}))
+                      "phase5": launched, "phase11": sharded,
+                      "phase22": chain, **times, "mw": mw_turn()}))
     return 0
 
 
@@ -3079,8 +3132,9 @@ def phase22(card: str, n: int = 131_072, checked: int = 2) -> dict:
     traffic): ``n`` rows resumed from the traffic's states drawn from
     ``--seed``, 2048-byte slots, T = 3, a warp a row. Its first ``checked``
     launches held bit for bit against the plain version, then its launch
-    timed queued at K = 1 and 32 and the staging alone, beside its bound.
-    Returns its largest deviation and its time a launch at K = 32."""
+    timed queued at K = 1 and 32, and the staging alone beside a copy of
+    the batch and its bound. Returns its largest deviation, its time a
+    launch at K = 32, and the staging's and the copy's."""
     import torch
     from portbench import run
     from interpolation_engine_tpu_torch.ops.turbo_step import (
@@ -3120,22 +3174,29 @@ def phase22(card: str, n: int = 131_072, checked: int = 2) -> dict:
     L = 4
     per_k = {k: timed(lambda b, k=k: turbo_step(eng.tables, b, k), clone(b0),
                       L, True) / L * 1e3 for k in (1, K)}
+    # the staging alone (every row RUNNING at a pc past the program) beside
+    # a copy of the batch (a clone of its tensors: the staging's bytes)
     staged = clone(b0)
     staged.regs[:, C_PC] = eng.tables.host.n_instr
     stage_ms = timed(lambda b: turbo_step(eng.tables, b, K), staged, L,
                      True) / L * 1e3
+    copy_ms = timed(clone, staged, L, True) / L * 1e3
     del staged
+    stage_bound = step_bound(eng.tables, b0, 0)["bound_ms"]
     log(f"phase 22 prompt-chain, {n} rows resumed from {len(states)} "
         f"states [{card}]: the first {checked} launches x {K} steps, "
         f"{got['turbo.warp_row_launches']} of them a warp a row "
         f"(turbo.warp_row_launches), bit-identical to the plain version; "
         f"kernel {per_k[K]:.3f} ms/launch at K={K}, {per_k[1]:.3f} at K=1 "
-        f"(queued), the staging "
-        f"alone {stage_ms:.3f}; bound {launch_bound['bound_ms']:.4f} ms "
-        f"({launch_bound['bound_by']}), the kernel at "
-        f"{launch_bound['bound_ms'] / per_k[K] * 100:.2f} % of it; "
-        f"{tile_line(eng.tables, b0, tcfg.tile)}")
-    return {"max_abs_err": worst, "ms": per_k[K]}
+        f"(queued), the staging alone {stage_ms:.3f}, a copy of the batch "
+        f"{copy_ms:.3f}, the batch read and written once and the tables "
+        f"read once {stage_bound:.4f}; bound "
+        f"{launch_bound['bound_ms']:.4f} ms ({launch_bound['bound_by']}), "
+        f"the kernel at {launch_bound['bound_ms'] / per_k[K] * 100:.2f} % "
+        f"of it; {tile_line(eng.tables, b0, tcfg.tile)}")
+    log(attributes_line())
+    return {"max_abs_err": worst, "ms": per_k[K], "stage_ms": stage_ms,
+            "copy_ms": copy_ms}
 
 
 def programs() -> dict:
@@ -3179,9 +3240,10 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the generated inputs (default 0)")
     parser.add_argument("--turn", metavar="TREE",
-                        help="run only phase 13, the chat filter's and M "
-                        "and W's times, with the package of the checkout "
-                        "TREE, and print one JSON line")
+                        help="run only phase 13, the launches of phases "
+                        "5, 11 and 22, the chat filter's and M and W's "
+                        "times, with the package of the checkout TREE, and "
+                        "print one JSON line")
     args = parser.parse_args(argv)
     SEED = args.seed
     import torch

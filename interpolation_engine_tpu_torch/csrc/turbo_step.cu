@@ -35,18 +35,27 @@
 //   1. stage in: copies the program tables (the flat int32 buffer, parsed
 //      once per block, and the literals when they are small) and the
 //      tile's register, string, output and meta rows into shared memory,
-//      neighbouring threads on neighbouring 16-byte units of a row, with
-//      asynchronous copies (cp.async) so that many are in flight;
+//      with asynchronous copies (cp.async) so that many are in flight. The
+//      tables go by neighbouring threads on neighbouring 16-byte units.
+//      The state's shared rows are padded (below): a row of 512 bytes or
+//      more goes a warp a row, its lanes on neighbouring words, so that one
+//      warp instruction reads 128 contiguous bytes of device memory and
+//      writes 32 consecutive words, 32 banks; a shorter row goes by
+//      neighbouring threads on neighbouring 16-byte units, each as four
+//      words, where a warp's row lookup would cost more than its bank
+//      conflicts;
 //   2. run: each thread steps its instance up to K times on shared memory,
 //      its render buffer and scratch row there too (no stack buffer);
-//   3. stage out: writes the tile back the same way, once.
+//   3. stage out: writes the tile's rows back once, each row the way it
+//      came in (a lane of a long row loads up to four words from shared
+//      memory before it stores them).
 // Barriers sit only between the phases. A tile with no RUNNING instance
 // reads its status column and nothing else. In shared memory every row of
 // an instance is padded to an odd number of words, so that a warp reading
 // one column or one byte of its rows hits 32 distinct banks. What bounds
 // the kernel now is the steps: on an H100 (chip_smoke.py phase 5, adventure
 // at 131,072 instances and K = 64) staging in and out alone takes under a
-// fifth of a launch, about the time of a plain copy of the batch, and each
+// fifth of a launch, about 1.3 times a plain copy of the batch, and each
 // step is a chain of dependent shared-memory loads and byte loops per
 // thread with only about 4 warps stepping on each SM (shared memory holds
 // about 110 adventure instances an SM), so latency sets the pace.
@@ -126,6 +135,9 @@ constexpr int MAX_STACK = 16;    // vm/turbo_tables.py RPN_MAX_STACK
 constexpr int HEADER = 32;       // vm/turbo_tables.py HEADER
 constexpr int OFF0 = 8;          // vm/turbo_tables.py _OFF0
 constexpr int SLOTW = 8;         // columns of the slots table
+// the shortest padded row staged a word a lane, a warp a row: four warp
+// instructions (ops/turbo_step.py WORD_ROW)
+constexpr int WORD_ROW = 4 * 4 * WARP;
 
 enum Op {
   OP_HALT, OP_NOP, OP_GOTO, OP_PARK, OP_CLEAR, OP_DELETE, OP_SET, OP_MATH,
@@ -1260,14 +1272,55 @@ __device__ __forceinline__ void copy_async_wait() {
 }
 #endif
 
+// The long padded rows of `stage` (shared rows 4-byte but not 16-byte
+// aligned, at least WORD_ROW bytes), `words` words each: each warp takes a
+// whole row in turn, its lanes neighbouring words (lane l words l, l + 32,
+// ...), so one warp instruction moves 128 contiguous bytes of device memory
+// to or from 32 consecutive shared words, 32 banks. The row's index and
+// addresses are worked out once a row, for at least four instructions.
+// IN copies asynchronously; out loads up to four words a lane from shared
+// memory before it stores them.
+template <bool IN>
+__device__ __forceinline__ void stage_words(uint32_t* s, uint32_t* g,
+                                            int planes, size_t gps,
+                                            const int* rows, int cnt,
+                                            int words, int sps, int sis,
+                                            int t, int nt) {
+  const int lane = t % WARP, warps = nt / WARP;
+  int p = t / WARP / cnt, i = t / WARP % cnt;
+  while (p < planes) {
+    const size_t r = rows ? (size_t)rows[i] : (size_t)i;
+    uint32_t* gw = g + (size_t)p * gps + r * words;
+    uint32_t* sw = s + (size_t)p * sps + (size_t)i * sis;
+    if (IN) {
+#pragma unroll 4
+      for (int w = lane; w < words; w += WARP) copy_async(sw + w, gw + w, 4);
+    } else {
+      for (int w = lane; w < words; w += 4 * WARP) {
+        uint32_t v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (w + j * WARP < words) v[j] = sw[w + j * WARP];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (w + j * WARP < words) gw[w + j * WARP] = v[j];
+      }
+    }
+    for (i += warps; i >= cnt; i -= cnt) ++p;
+  }
+}
+
 // Copy `planes` planes of cnt rows of len bytes between the batch and the
 // tile, block-wide (thread t of nt). In the batch, plane p's rows lie back
 // to back from g + p * gps, and row i of the tile is the batch's row
 // rows[i] (row i where rows is null); in shared memory row i of plane p is
-// at s + p * sps + i * sis. Neighbouring threads take neighbouring units of
-// a row: 16 bytes where the alignment allows, else 4, else 1. A 16-byte
-// unit whose shared address is only 4-aligned (a padded row) moves as four
-// words. IN copies asynchronously (the caller waits); out is plain stores.
+// at s + p * sps + i * sis. A padded row (shared address only 4-aligned)
+// of at least WORD_ROW bytes moves a word a lane, a warp a row
+// (`stage_words`). Otherwise neighbouring threads take neighbouring units
+// of a row, which costs a thread one row lookup a unit: 16 bytes where the
+// alignment allows, else 4, else 1; a 16-byte unit of a shorter padded row
+// moves as four words. IN copies asynchronously (the caller waits); out is
+// plain stores.
 template <bool IN>
 __device__ __forceinline__ void stage(uint8_t* s, uint8_t* g, int planes,
                                       size_t gps, const int* rows, int cnt,
@@ -1276,10 +1329,17 @@ __device__ __forceinline__ void stage(uint8_t* s, uint8_t* g, int planes,
   if (planes <= 0 || cnt <= 0 || len <= 0) return;
   const uintptr_t ga = (uintptr_t)g | (uintptr_t)gps;
   const uintptr_t sa = (uintptr_t)s | (uintptr_t)sps | (uintptr_t)sis;
-  int u = 1;
-  if ((len & 3) == 0 && (ga & 3) == 0 && (sa & 3) == 0)
-    u = ((len & 15) == 0 && (ga & 15) == 0) ? 16 : 4;
   const bool whole = (sa & 15) == 0;
+  int u = 1;
+  if ((len & 3) == 0 && (ga & 3) == 0 && (sa & 3) == 0) {
+    if (!whole && len >= WORD_ROW) {
+      stage_words<IN>(reinterpret_cast<uint32_t*>(s),
+                      reinterpret_cast<uint32_t*>(g), planes, gps / 4, rows,
+                      cnt, len / 4, sps / 4, sis / 4, t, nt);
+      return;
+    }
+    u = ((len & 15) == 0 && (ga & 15) == 0) ? 16 : 4;
+  }
   const int per = len / u, total = planes * cnt * per;
   // unit q is unit k of row i of plane p; from one of this thread's units
   // to the next is nt units: di rows and dk units on
@@ -1304,10 +1364,10 @@ __device__ __forceinline__ void stage(uint8_t* s, uint8_t* g, int planes,
       if (IN) *sq = *gq;
       else *gq = *sq;
     } else if (IN) {
-      if (u == 16 && whole) {
-        copy_async(sq, gq, 16);
-      } else {
+      if (u == 16 && !whole) {
         for (int w = 0; w < u; w += 4) copy_async(sq + w, gq + w, 4);
+      } else {
+        copy_async(sq, gq, u);
       }
     } else if (u == 16) {
       uint4 v;

@@ -68,6 +68,8 @@ MAX_TILE = 256           # csrc/turbo_step.cu MAX_TILE: threads per block
 WARP = 32                # csrc/turbo_step.cu WARP: the wide lane group
 PROG_BYTES = 256         # csrc/turbo_step.cu PROG_BYTES: the parsed program
 ROW_PAD = 4              # bytes past a byte row's 16-byte round-up
+WORD_ROW = 512           # csrc/turbo_step.cu WORD_ROW: the shortest padded
+                         # row the kernel stages a word a lane, a warp a row
 BLOCKS_PER_SM = 2        # the tile is sized for this many blocks an SM
 REGROUP_THREADS = 256    # csrc/regroup.cu THREADS: a chunk's block
 REGROUP_CHUNK = 1024     # rows a chunk of the regroup, at least
@@ -366,16 +368,37 @@ def launch_plan(tables: StepTables, batch, tile: int = 128) -> TilePlan:
     return plan
 
 
+def _state_regions(plan: TilePlan, batch):
+    """The regions of a row that a launch stages, as kernel A's
+    ``stage_state`` copies them: (bytes a row, planes, shared stride from
+    one instance to the next, shared stride from one plane to the next)
+    for the registers, the meta planes, the string rows and the output."""
+    regs, sbuf, out, _ = batch
+    return ((4 * regs.shape[1], 1, plan.regs_is, 0),
+            (4 * plan.cells, plan.planes, plan.meta_is, plan.meta_ps),
+            (sbuf.shape[2], plan.rows, plan.sbuf_is, plan.sbuf_ps),
+            (out.shape[1], 1, plan.out_is, 0))
+
+
 def staged_bytes(plan: TilePlan, batch) -> int:
     """The batch bytes a launch of ``plan`` stages in and back out, by
     host arithmetic from the shapes: each row's registers, meta planes,
     string rows and output, twice (a tile none of whose rows runs stages
     nothing; this counts it all the same)."""
-    regs, sbuf, out, _ = batch
-    n, regw = regs.shape
-    row = (4 * regw + 4 * plan.planes * plan.cells + plan.rows * sbuf.shape[2]
-           + out.shape[1])
-    return 2 * n * row
+    return 2 * batch.regs.shape[0] * sum(
+        size * planes for size, planes, _, _ in _state_regions(plan, batch))
+
+
+def staged_word_bytes(plan: TilePlan, batch) -> int:
+    """The part of ``staged_bytes`` that kernel A moves a word a lane, a
+    warp a row (``stage_words``): the regions whose rows are whole words,
+    at least ``WORD_ROW`` bytes, and 4-byte but not 16-byte aligned in
+    shared memory (the padded rows of ``tile_plan``'s layout)."""
+    return 2 * batch.regs.shape[0] * sum(
+        size * planes
+        for size, planes, istride, pstride in _state_regions(plan, batch)
+        if size % 4 == 0 and size >= WORD_ROW
+        and (istride | pstride) % 4 == 0 and (istride | pstride) % 16)
 
 
 @functools.cache
@@ -501,11 +524,14 @@ def launch_order(tables: StepTables, regs: torch.Tensor, tile: int,
 def count_launch(plan: TilePlan, batch) -> None:
     """A launch's counters, host arithmetic with no sync:
     ``turbo.warp_row_launches`` once where a warp steps each row of the
-    plan; while recording, ``turbo.staged_bytes``."""
+    plan; while recording, ``turbo.staged_bytes`` and
+    ``turbo.staged_word_bytes``."""
     if plan.lanes > 1:
         EVENTS.count("turbo.warp_row_launches")
     if EVENTS.recorded is not None:
         EVENTS.count("turbo.staged_bytes", staged_bytes(plan, batch))
+        EVENTS.count("turbo.staged_word_bytes",
+                     staged_word_bytes(plan, batch))
 
 
 def turbo_step(tables: StepTables, batch, k_steps: int, tile: int = 128):

@@ -10,6 +10,7 @@ and whether a warp steps each row, and the entry the base width it sizes
 for a program."""
 
 import ast
+import dataclasses
 import pathlib
 import threading
 import time
@@ -294,7 +295,8 @@ def syncs_outside_host_sync(tree) -> list:
 # the turbo launch's path on a card (ops/turbo_step.py)
 TURBO_LAUNCH = {"turbo_step", "_check", "launch_plan", "tile_plan",
                 "sm_count", "regroups", "launch_order", "regroup",
-                "_regroup_key", "warp_starts", "staged_bytes"}
+                "_regroup_key", "warp_starts", "staged_bytes",
+                "staged_word_bytes", "_state_regions"}
 
 
 def test_the_turbo_launch_syncs_only_through_host_sync():
@@ -520,6 +522,54 @@ def test_warp_row_launches_are_the_launches_of_a_wide_cell(cell, tile, warp):
                                                                       batch)
     ts.count_launch(plan, batch)                 # off: nothing, no error
     assert EVENTS.recorded is None
+
+
+@pytest.mark.parametrize("cell", ["prompt-chain", "adventure", "lockstep"])
+def test_staged_word_bytes_are_the_long_padded_rows_of_a_turbo_cell(cell):
+    """``turbo.staged_word_bytes``, host arithmetic from the plan, counted
+    beside ``turbo.staged_bytes`` while recording: the rows of at least
+    ``WORD_ROW`` bytes, each padded to an odd number of words in shared
+    memory, which the kernel stages a word a lane, a warp a row. In
+    ``prompt-chain`` that is all but the 144-byte meta rows (the 512-byte
+    registers, twelve 2048-byte string rows, the 4096-byte output); in
+    ``adventure`` and ``lockstep`` the 512-byte registers alone."""
+    batch, plan = cell_plan(cell)
+    n, regw = batch.regs.shape
+    staged = ts.staged_bytes(plan, batch)
+    want = (staged - 2 * n * 4 * plan.cells if cell == "prompt-chain"
+            else 2 * n * 4 * regw)
+    assert regw == 128 and plan.cells == 36 and plan.planes == 1
+    assert ts.staged_word_bytes(plan, batch) == want
+    with EVENTS.recording() as rec:
+        for _ in range(3):
+            ts.count_launch(plan, batch)
+    assert rec.counters["turbo.staged_word_bytes"] == 3 * want
+    assert rec.counters["turbo.staged_bytes"] == 3 * staged
+
+
+def test_staged_word_bytes_count_only_the_long_padded_rows(wide):
+    """On a synthetic plan whose shared strides are all 16-byte multiples
+    nothing takes the word path; where only the string rows are padded,
+    their bytes alone do; rows of bytes that are no whole words (width 50)
+    stage byte by byte, and padded rows under ``WORD_ROW`` bytes (width
+    128) by 16-byte units, so neither is counted."""
+    eng, batch = wide
+    plan = ts.tile_plan(eng.tables, batch, eng.tcfg.tile, ts.H100_SHARED)
+    t = plan.tile
+    aligned = dataclasses.replace(
+        plan, regs_is=528, meta_is=160, meta_ps=t * 160, sbuf_is=2064,
+        sbuf_ps=t * 2064, out_is=4112)
+    assert ts.staged_word_bytes(aligned, batch) == 0
+    assert ts.staged_bytes(aligned, batch) == ts.staged_bytes(plan, batch)
+    sbuf_only = dataclasses.replace(aligned, sbuf_is=plan.sbuf_is,
+                                    sbuf_ps=plan.sbuf_ps)
+    n, rows, width = batch.regs.shape[0], plan.rows, batch.sbuf.shape[2]
+    assert ts.staged_word_bytes(sbuf_only, batch) == 2 * n * rows * width
+    for narrow in (50, 128):
+        cut = type(batch)(batch.regs, batch.sbuf[:, :, :narrow].contiguous(),
+                          batch.out, batch.meta)
+        assert ts.staged_word_bytes(plan, cut) == (
+            ts.staged_word_bytes(plan, batch) - 2 * n * rows * width)
 
 
 def test_turbo_step_counts_each_launch_through_count_launch():

@@ -189,6 +189,15 @@ def test_plan_fields_are_the_kernels_tile_struct():
     assert f"TILE_FIELDS = {len(names)};" in src
 
 
+def test_the_word_row_is_the_kernels():
+    """``WORD_ROW``, the shortest padded row the kernel stages a word a
+    lane (``staged_word_bytes`` counts by it), is the kernel's: four warp
+    instructions of 32 words."""
+    src = (CSRC / "turbo_step.cu").read_text()
+    assert "constexpr int WORD_ROW = 4 * 4 * WARP;" in src
+    assert ts.WORD_ROW == 4 * 4 * ts.WARP == 512
+
+
 def test_tile_caps_and_large_literals_stay_in_device_memory():
     eng = engine("adventure")
     batch = eng.make_batch(4)
@@ -219,41 +228,47 @@ def test_one_instance_too_big_raises_naming_the_bytes():
     assert ts.tile_plan(eng.tables, half).tile >= 1
 
 
-def pack(plan, batch, b):
-    """Tile b of batch in the plan's layout: the offsets ``stage_in``
-    uses, as a (smem,) uint8 tensor."""
-    sm = torch.zeros(plan.smem, dtype=torch.uint8)
-    for off, istride, pstride, rows in _views(plan, batch, b):
-        planes, cnt, ln = rows.shape
-        at = (off + torch.arange(planes)[:, None, None] * pstride
-              + torch.arange(cnt)[None, :, None] * istride
-              + torch.arange(ln)[None, None, :])
-        sm[at.reshape(-1)] = rows.reshape(-1)
+def _regions(plan, batch):
+    """(offset, instance stride, plane stride, the batch's rows as a
+    (planes, n, bytes) uint8 view) of each staged region."""
+    regs, sbuf, out, meta = batch
+    return [(plan.regs_off, plan.regs_is, 0, regs.view(torch.uint8)[None]),
+            (plan.meta_off, plan.meta_is, plan.meta_ps,
+             meta.view(torch.uint8)),
+            (plan.sbuf_off, plan.sbuf_is, plan.sbuf_ps, sbuf),
+            (plan.out_off, plan.out_is, 0, out[None])]
+
+
+def _at(off, istride, pstride, planes, cnt, size):
+    """Where in shared memory the bytes of (planes, cnt, size) rows go."""
+    return (off + torch.arange(planes)[:, None, None] * pstride
+            + torch.arange(cnt)[None, :, None] * istride
+            + torch.arange(size)[None, None, :]).reshape(-1)
+
+
+def tile_rows(plan, n, b):
+    """The batch rows of tile b in row order: slots b * T on."""
+    return torch.arange(b * plan.tile, min((b + 1) * plan.tile, n))
+
+
+def pack(plan, batch, rows, sm=None):
+    """The tile whose slots hold the batch's ``rows`` in the plan's layout,
+    at the offsets ``stage_in`` uses: written into sm, a (smem,) uint8
+    tensor (zeros when None), which is returned."""
+    if sm is None:
+        sm = torch.zeros(plan.smem, dtype=torch.uint8)
+    for off, istride, pstride, data in _regions(plan, batch):
+        picked = data[:, rows]
+        sm[_at(off, istride, pstride, *picked.shape)] = picked.reshape(-1)
     return sm
 
 
-def unpack(plan, sm, batch, b):
-    """The reverse of ``pack``, into batch's rows of tile b."""
-    for off, istride, pstride, rows in _views(plan, batch, b):
-        planes, cnt, ln = rows.shape
-        at = (off + torch.arange(planes)[:, None, None] * pstride
-              + torch.arange(cnt)[None, :, None] * istride
-              + torch.arange(ln)[None, None, :])
-        rows.copy_(sm[at.reshape(-1)].reshape(rows.shape))
-
-
-def _views(plan, batch, b):
-    """(offset, instance stride, plane stride, the tile's rows as a
-    (planes, cnt, bytes) uint8 view) of each staged region."""
-    regs, sbuf, out, meta = batch
-    i0 = b * plan.tile
-    i1 = min(i0 + plan.tile, regs.shape[0])
-    return [(plan.regs_off, plan.regs_is, 0,
-             regs[i0:i1].view(torch.uint8)[None]),
-            (plan.meta_off, plan.meta_is, plan.meta_ps,
-             meta[:, i0:i1].view(torch.uint8)),
-            (plan.sbuf_off, plan.sbuf_is, plan.sbuf_ps, sbuf[:, i0:i1]),
-            (plan.out_off, plan.out_is, 0, out[i0:i1][None])]
+def unpack(plan, sm, batch, rows):
+    """The reverse of ``pack``, into the batch's ``rows``."""
+    for off, istride, pstride, data in _regions(plan, batch):
+        planes, _, size = data.shape
+        data[:, rows] = sm[_at(off, istride, pstride, planes, len(rows),
+                               size)].reshape(planes, len(rows), size)
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -264,7 +279,8 @@ def test_pack_and_unpack_return_the_batch(name):
     batch = seeded(eng.make_batch(n), seed=len(name))
     back = type(batch)(*(torch.zeros_like(t) for t in batch))
     for b in range(-(-n // plan.tile)):
-        unpack(plan, pack(plan, batch, b), back, b)
+        rows = tile_rows(plan, n, b)
+        unpack(plan, pack(plan, batch, rows), back, rows)
     for got, want in zip(back, batch):
         assert torch.equal(got, want)
 
@@ -402,6 +418,34 @@ extern "C" int rehearse(const int* flat, const uint8_t* lits, int* regs,
   free(sm);
   return rc;
 }
+
+// The staging of tile b alone on `image`, `size` bytes of shared memory
+// (the plan's and a guard past it), each thread in turn as the kernel's
+// barriers order them: with `in`, every thread's entry check (which notes
+// the tile's rows) and then its stage-in; else its stage-out. 0: done;
+// -1: arguments refused.
+extern "C" int stage_block(const int* flat, const uint8_t* lits, int* regs,
+                           uint8_t* sbuf, uint8_t* out, int* meta,
+                           const int* perm, int n, int regw, int width,
+                           int out_width, const int* plan, int plan_len,
+                           int b, uint8_t* image, int size, int in) {
+  Args a;
+  if (!make_args(&a, flat, lits, regs, sbuf, out, meta, perm, n, regw,
+                 width, out_width, 1, plan, plan_len) ||
+      size < a.tl.smem || b < 0 || b * a.tl.tile >= n)
+    return -1;
+  uint8_t* sm = (uint8_t*)aligned_alloc(16, (size + 15) / 16 * 16);
+  memcpy(sm, image, size);
+  if (in) {
+    for (int t = 0; t < MAX_TILE; ++t) running_at_entry(a, b, t, sm);
+    for (int t = 0; t < MAX_TILE; ++t) stage_in(a, b, t, MAX_TILE, sm);
+  } else {
+    for (int t = 0; t < MAX_TILE; ++t) stage_out(a, b, t, MAX_TILE, sm);
+  }
+  memcpy(image, sm, size);
+  free(sm);
+  return 0;
+}
 """
 
 
@@ -421,6 +465,9 @@ def rehearsal(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rehearse.argtypes = [p] * 7 + [i] * 5 + [ctypes.POINTER(i), i]
     lib.rehearse.restype = i
+    lib.stage_block.argtypes = [p] * 7 + [i] * 4 + [ctypes.POINTER(i)] + [
+        i, i, p, i, i]
+    lib.stage_block.restype = i
     return lib
 
 
@@ -619,6 +666,81 @@ def random_program_case(idx):
 @pytest.mark.parametrize("idx", range(12))
 def test_rehearsed_random_programs(idx, rehearsal):
     hold(rehearsal, *random_program_case(idx))
+
+
+# ---- the staging alone -------------------------------------------------------
+
+GUARD = 64
+
+
+def stage_block(lib, tables, batch, perm, plan, b, image, stage_in):
+    regs, sbuf, out, meta = batch
+    vals = astuple(plan)
+    rc = lib.stage_block(tables.flat.data_ptr(), tables.lits.data_ptr(),
+                         regs.data_ptr(), sbuf.data_ptr(), out.data_ptr(),
+                         meta.data_ptr(), perm.data_ptr(), regs.shape[0],
+                         regs.shape[1], sbuf.shape[2], out.shape[1],
+                         (ctypes.c_int * len(vals))(*vals), len(vals), b,
+                         image.data_ptr(), image.numel(), int(stage_in))
+    assert rc == 0
+
+
+def staging_engine(name):
+    if name == "odd_widths":
+        return odd_widths_case()[0]
+    return engine(name)
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("name", sorted(SHAPES) + ["odd_widths"])
+def test_staging_moves_exactly_the_tiles_rows(name, n, rehearsal):
+    """Stage-in and stage-out alone, tile by tile, at each shape's plan
+    (and widths of 50 and 70 bytes, which stage byte by byte) over a
+    ragged batch of seeded bytes whose tile slots step a seeded
+    permutation of the rows. Stage-in on garbage leaves the Python
+    layout's pack of the tile's rows, the tables and the row indices, and
+    every other byte of the image (the pads between rows, the render rows,
+    the guard past the plan's bytes) as it was. Stage-out of an image
+    changed everywhere writes exactly the tile's rows of that image into
+    the batch, no other byte of the batch, and no byte of the image."""
+    eng = staging_engine(name)
+    plan = ts.tile_plan(eng.tables, eng.make_batch(4))
+    T = plan.tile
+    rows = {"1": 1, "T-1": T - 1, "T+1": T + 1, "3T+5": 3 * T + 5}[n]
+    assert rows > 0
+    batch = seeded(eng.make_batch(rows), seed=rows)
+    perm = torch.randperm(rows, generator=torch.Generator().manual_seed(
+        rows)).to(torch.int32)
+    gen = torch.Generator().manual_seed(T)
+    tables = eng.tables
+    for b in range(-(-rows // T)):
+        slots = perm[b * T:(b + 1) * T].long()
+        garbage = torch.randint(0, 256, (plan.smem + GUARD,), generator=gen,
+                                dtype=torch.uint8)
+        image = garbage.clone()
+        stage_block(rehearsal, tables, batch, perm, plan, b, image, True)
+        want = garbage.clone()
+        want[plan.flat_off:plan.flat_off + plan.flat_bytes] = \
+            tables.flat.view(torch.uint8)
+        if plan.lits_off >= 0:
+            want[plan.lits_off:plan.lits_off + plan.lits_bytes] = \
+                tables.lits.reshape(-1)
+        want[plan.idx_off:plan.idx_off + 4 * len(slots)] = \
+            slots.to(torch.int32).view(torch.uint8)
+        pack(plan, batch, slots, want)
+        # the parsed program (host pointers here) at 0 is thread 0's
+        assert torch.equal(image[ts.PROG_BYTES:], want[ts.PROG_BYTES:]), b
+        changed = torch.randint(0, 256, image.shape, generator=gen,
+                                dtype=torch.uint8)
+        kept = plan.idx_off + 4 * T        # the program and the row indices
+        changed[:kept] = image[:kept]
+        sent = changed.clone()
+        expected = type(batch)(*(t.clone() for t in batch))
+        unpack(plan, changed, expected, slots)
+        stage_block(rehearsal, tables, batch, perm, plan, b, changed, False)
+        assert torch.equal(changed, sent), b
+        for field, got, w in zip(batch._fields, batch, expected):
+            assert torch.equal(got, w), (b, field)
 
 
 # ---- the rehearsal through a row order ---------------------------------------
